@@ -9,12 +9,18 @@ half:
 
   ops/types.py        ExtendParams / ExtendOut and the scoring vector
   ops/extend_torch.py plain PyTorch banded extension (the CPU path and
-                      the oracle the kernel is held to)
-  ops/extend_cuda.py  the hand-written Hopper kernel for the fused
-                      four-pass extension (csrc/extend_fused.cu)
+                      the oracle the kernels are held to)
+  ops/extend_cuda.py  the hand-written Hopper kernels: the fused
+                      four-pass extension (csrc/extend_fused.cu) and the
+                      per-phase one-pass extension (csrc/extend_t.cu)
+  ops/extend.py       the Python host's batched extension backend
   pipeline/resident.py  the device-resident two-strand reference, the
                       window gathers and the fused_idx backend that
                       NativePipeline drives
+  pipeline/native_driver.py  the per-phase (--phased) and host-shipped
+                      fused (--ship-ref) backends for NativePipeline
+  pipeline/driver.py, pipeline/pair.py  the Python host (--host python)
+                      without the reference driver's JAX calls
   __main__.py         `python -m bwamem_tpu_torch index|mem|merge`
 
 Nothing here imports JAX.  The device is always passed in explicitly.

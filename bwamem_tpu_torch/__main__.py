@@ -3,15 +3,22 @@ NVIDIA GPU.
 
   python -m bwamem_tpu_torch index ref.fa
   python -m bwamem_tpu_torch mem [-t N] [-b BATCH] [--inflight N] \
-         [--backend cuda|torch] ref.fa reads.fq [mates.fq] > out.sam
+         [--backend cuda|torch|scalar] [--host auto|native|python] \
+         [--phased | --ship-ref] ref.fa reads.fq [mates.fq] > out.sam
   python -m bwamem_tpu_torch merge out.sam shard0.sam shard1.sam ...
 
 `index` and `merge` are the JAX package's own (they run no device
-code).  `mem` runs the native C++ host pipeline with the
-resident-reference fused extension on the device: `--backend cuda` is
-the hand-written kernel on the GPU, `--backend torch` the plain PyTorch
-version on the CPU.  Options whose device paths are not ported yet
-exit non-zero and name the ROADMAP item that ports them.
+code).  `mem --backend cuda` runs the hand-written kernels on the GPU,
+`--backend torch` their plain PyTorch versions on the CPU, and
+`--backend scalar` the pure host with no batched extension.  The
+native C++ host (the default) drives the resident-reference fused
+extension, or with `--ship-ref` the fused kernel fed from host-filled
+windows, or with `--phased` the four-pass protocol of per-phase
+launches.  `--host python` runs the JAX package's Python host with the
+port's batched extension.  There is no fallback between hosts: the
+native host exits 1 when its C++ library is unavailable.  Options whose
+device paths are not ported yet exit non-zero and name the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
@@ -26,45 +33,68 @@ from bwamem_tpu.__main__ import _parse_isize, cmd_index, cmd_merge, load_index
 # option (as argparse dest) -> why it is refused; each names its item
 # in ROADMAP.md "Open items"
 _NOT_PORTED = {
-    "ship_ref": "--ship-ref (host-shipped windows) is ROADMAP Queue 1 "
-                "item 6 (slice 2)",
     "device_cigar": "--device-cigar is ROADMAP Queue 1 item 8 (slice 4)",
     "device_rescue": "--device-rescue is ROADMAP Queue 1 item 7 (slice 3)",
     "device_seed": "--device-seed is ROADMAP Queue 1 item 10 (slice 6)",
 }
-_BACKENDS_NOT_PORTED = {
-    "scalar": "ROADMAP Queue 1 item 6 (slice 2: Python-host backends)",
-    "jax": "ROADMAP Queue 1 item 6 (slice 2: per-phase backends)",
-    "pallas": "ROADMAP Queue 1 item 6 (slice 2; the port's kernel is "
-              "--backend cuda)",
-}
+# the JAX package's device backends -> the port's counterparts
+_BACKEND_COUNTERPART = {"jax": "torch", "pallas": "cuda"}
 
 
 def not_ported(args) -> str | None:
-    """Why `args` asks for a path the port does not have yet, or None."""
-    if args.backend in _BACKENDS_NOT_PORTED:
-        return (f"--backend {args.backend} is not ported: "
-                f"{_BACKENDS_NOT_PORTED[args.backend]}")
-    if args.host == "python":
-        return ("--host python is not ported: ROADMAP Queue 1 item 6 "
-                "(slice 2)")
+    """Why `args` asks for a path the port does not have, or None."""
+    if args.backend in _BACKEND_COUNTERPART:
+        return (f"--backend {args.backend} is the JAX package's; the "
+                f"port's counterpart is --backend "
+                f"{_BACKEND_COUNTERPART[args.backend]} (ROADMAP Queue 1 "
+                f"item 4)")
     for dest, why in _NOT_PORTED.items():
         if getattr(args, dest):
             return f"{why}; not ported yet"
     return None
 
 
-def make_backend(opt, backend: str, pac):
-    """The resident-reference fused backend for NativePipeline: the
-    kernel on the GPU (`cuda`) or the plain version on the CPU
-    (`torch`)."""
+def python_host(args) -> bool:
+    """--host python, or --backend scalar (a pure host path, as in the
+    JAX package)."""
+    return args.host == "python" or args.backend == "scalar"
+
+
+def bad_combination(args) -> str | None:
+    """Why the options contradict each other, or None."""
+    if args.phased and args.ship_ref:
+        return "--phased and --ship-ref choose different native backends"
+    if python_host(args) and (args.phased or args.ship_ref):
+        return ("--phased and --ship-ref select native-host backends; "
+                "the Python host (--host python, --backend scalar) has "
+                "its own")
+    return None
+
+
+def make_backend(opt, args, pac):
+    """The extension backend that `args` selects, on the GPU (`cuda`) or
+    the CPU (`torch`): for the Python host an extend_batch_fn (None for
+    `scalar`); for the native host the callable NativePipeline drives
+    (per-phase with --phased, host-shipped fused with --ship-ref, else
+    resident-reference fused)."""
     from bwamem_tpu_torch.device import resolve
     from bwamem_tpu_torch.ops.types import params_from_options
-    from bwamem_tpu_torch.pipeline import resident
 
-    device = resolve("cuda" if backend == "cuda" else "cpu")
-    return resident.make_fused_idx_backend(params_from_options(opt), pac,
-                                           device)
+    if args.backend == "scalar":
+        return None
+    device = resolve("cuda" if args.backend == "cuda" else "cpu")
+    params = params_from_options(opt)
+    if python_host(args):
+        from bwamem_tpu_torch.ops import extend
+
+        return extend.make_raw_backend(params, device)
+    from bwamem_tpu_torch.pipeline import native_driver, resident
+
+    if args.phased:
+        return native_driver.make_raw_t_backend(params, device)
+    if args.ship_ref:
+        return native_driver.make_fused_backend(params, device)
+    return resident.make_fused_idx_backend(params, pac, device)
 
 
 def cmd_mem(args) -> int:
@@ -76,11 +106,12 @@ def cmd_mem(args) -> int:
     from bwamem_tpu.io.sam import sam_header
     from bwamem_tpu.pipeline import native_driver
 
-    why = not_ported(args)
+    why = not_ported(args) or bad_combination(args)
     if why:
         sys.stderr.write(f"[mem] {why}\n")
         return 2
-    if not native_driver.available():
+    on_python = python_host(args)
+    if not on_python and not native_driver.available():
         sys.stderr.write("[mem] the native host library is unavailable "
                          "(g++ build of csrc/ failed)\n")
         return 1
@@ -96,7 +127,7 @@ def cmd_mem(args) -> int:
                      **_parse_isize(args.I))
     ref, fm = load_index(args.fasta)
     try:
-        fused_fn = make_backend(opt, args.backend, ref.pac)
+        ext_fn = make_backend(opt, args, ref.pac)
     except RuntimeError as e:  # e.g. --backend cuda without a GPU
         sys.stderr.write(f"[mem] {e}\n")
         return 1
@@ -154,16 +185,20 @@ def cmd_mem(args) -> int:
 
     def emit(rec, comments=None) -> None:
         """Write one record; -C appends the FASTQ comment of the end
-        the record belongs to (records already carry RG:Z)."""
+        the record belongs to (native records already carry RG:Z)."""
         line = rec.line()
+        if rg_id and on_python:
+            line += "\tRG:Z:" + rg_id
         if comments is not None:
             cm = comments[1] if (rec.flag & 0x80) else comments[0]
             if cm:
                 line += "\t" + cm
         out.write(line + "\n")
 
-    depth = max(args.inflight, 1) if pair_iter is None else 1
-    pipes = [native_driver.NativePipeline(
+    # the Python host runs one chunk at a time
+    depth = max(args.inflight, 1) if pair_iter is None and not on_python \
+        else 1
+    pipes = [] if on_python else [native_driver.NativePipeline(
         opt, ref, fm, po, nthreads=args.t, tracer=tracer,
         bucket_split=args.bucket_split) for _ in range(depth)]
     if rg_id:
@@ -184,8 +219,10 @@ def cmd_mem(args) -> int:
             steady[1] = reads_done
 
     if pair_iter is not None:
-        # full PE chunk in C++: pestat, mate rescue, pairing, sam_pe
-        pipe = pipes[0]
+        # the native host runs the full PE chunk in C++ (pestat, mate
+        # rescue, pairing, sam_pe); the Python host runs pair.align_pairs
+        from bwamem_tpu_torch.pipeline.pair import align_pairs
+
         for chunk, mchunk in pair_iter:
             if len(chunk) != len(mchunk):
                 raise ValueError("read/mate count mismatch")
@@ -200,19 +237,25 @@ def cmd_mem(args) -> int:
                       quals2=[m.qual for m in mchunk])
             seqs1 = [r.seq.astype(np.int64) for r in chunk]
             seqs2 = [m.seq.astype(np.int64) for m in mchunk]
-            if not args.C:
+            if on_python:
+                recs = align_pairs(opt, ref, fm, seqs1, seqs2, po=po,
+                                   extend_batch_fn=ext_fn, **kw)
+            elif not args.C:
                 # zero-object fast path: one pre-terminated text blob
-                text, nr_ = pipe.align_pairs_chunk_text(seqs1, seqs2,
-                                                        fused_fn, **kw)
+                text, nr_ = pipes[0].align_pairs_chunk_text(
+                    seqs1, seqs2, ext_fn, **kw)
                 out.write(text)
                 n_rec += nr_
+                recs = []
             else:
-                recs = pipe.align_pairs_chunk(seqs1, seqs2, fused_fn, **kw)
-                for gi, rr_ in enumerate(recs):
-                    cms = (chunk[gi].comment, mchunk[gi].comment)
-                    for rec in rr_:
-                        emit(rec, cms)
-                        n_rec += 1
+                recs = pipes[0].align_pairs_chunk(seqs1, seqs2, ext_fn,
+                                                  **kw)
+            for gi, rr_ in enumerate(recs):
+                cms = ((chunk[gi].comment, mchunk[gi].comment) if args.C
+                       else None)
+                for rec in rr_:
+                    emit(rec, cms)
+                    n_rec += 1
             if manifest is not None:
                 manifest.mark_done(rr)
             mark_chunk_done(n_reads)
@@ -224,14 +267,24 @@ def cmd_mem(args) -> int:
         from collections import deque
         from concurrent.futures import ThreadPoolExecutor
 
+        from bwamem_tpu.pipeline import align as A
+        from bwamem_tpu_torch.pipeline.driver import align_batch
+
         def run_chunk(ci, chunk):
-            pipe_ = pipes[ci % len(pipes)]
+            """The chunk's SAM as (text, records) from the native fast
+            path, else as per-read record lists."""
             seqs = [r.seq.astype(np.int64) for r in chunk]
             kw = dict(names=[r.name for r in chunk],
                       quals=[r.qual for r in chunk])
+            if on_python and ext_fn is None:
+                return [A.align_read(opt, ref, fm, r.name, sq, r.qual)
+                        for r, sq in zip(chunk, seqs)]
+            if on_python:
+                return align_batch(opt, ref, fm, seqs, ext_fn, po=po, **kw)
+            pipe_ = pipes[ci % len(pipes)]
             if not args.C:
-                return pipe_.align_chunk_text(seqs, fused_fn, **kw)
-            return pipe_.align_chunk(seqs, fused_fn, **kw)
+                return pipe_.align_chunk_text(seqs, ext_fn, **kw)
+            return pipe_.align_chunk(seqs, ext_fn, **kw)
 
         reads_done = 0
 
@@ -239,14 +292,14 @@ def cmd_mem(args) -> int:
             nonlocal n_rec, reads_done
             rng_, cms, n_chunk, fut = futs.popleft()
             got = fut.result()
-            if not args.C:
+            if isinstance(got, tuple):
                 text, nr_ = got
                 out.write(text)
                 n_rec += nr_
             else:
                 for gi, rr in enumerate(got):
                     for rec in rr:
-                        emit(rec, (cms[gi], None))
+                        emit(rec, (cms[gi], None) if args.C else None)
                         n_rec += 1
             if manifest is not None:
                 manifest.mark_done(rng_)
@@ -318,8 +371,9 @@ def build_parser() -> argparse.ArgumentParser:
                      help="host threads (native pipeline stages)")
     mem.add_argument("--host", default="auto",
                      choices=["auto", "native", "python"],
-                     help="host pipeline implementation (only the native "
-                          "C++ host is ported)")
+                     help="host pipeline: the native C++ host (auto = "
+                          "native; no fallback to python), or the Python "
+                          "host with batched extension")
     mem.add_argument("-b", type=int, default=512, help="batch size")
     mem.add_argument("-k", type=int, default=19, help="min seed length")
     mem.add_argument("-w", type=int, default=100, help="band width")
@@ -366,9 +420,10 @@ def build_parser() -> argparse.ArgumentParser:
     mem.add_argument("--backend", default="cuda",
                      choices=["cuda", "torch", "scalar", "jax", "pallas"],
                      help="extension backend: cuda = the hand-written "
-                          "kernel on the GPU, torch = the plain PyTorch "
-                          "version on the CPU (scalar/jax/pallas are "
-                          "not ported)")
+                          "kernels on the GPU, torch = their plain PyTorch "
+                          "versions on the CPU, scalar = the pure Python "
+                          "host (jax/pallas are the JAX package's; their "
+                          "counterparts here are torch/cuda)")
     mem.add_argument("--trace", default=None, metavar="OUT.jsonl",
                      help="per-batch device trace + counters summary")
     mem.add_argument("--resume", default=None, metavar="MANIFEST.jsonl",
@@ -377,8 +432,15 @@ def build_parser() -> argparse.ArgumentParser:
     mem.add_argument("--inflight", type=int, default=3,
                      help="SE chunks in flight (pipeline depth)")
     mem.add_argument("--ship-ref", action="store_true",
-                     help="ship target windows from the host (not "
-                          "ported)")
+                     help="native host: the fused kernel fed from "
+                          "windows filled and shipped by the host instead "
+                          "of the device-resident reference")
+    mem.add_argument("--phased", action="store_true",
+                     help="native host: the four-pass protocol (L0, L "
+                          "retry, R0, R retry as separate per-phase kernel "
+                          "launches) instead of the fused kernel; the "
+                          "port's counterpart of the JAX package's "
+                          "`bench/throughput.py --phased`")
     mem.add_argument("--bucket-split", action="store_true",
                      help="dispatch each fused chunk as two shape "
                           "buckets (a second device call)")

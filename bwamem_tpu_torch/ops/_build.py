@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-The sources in bwamem_tpu_torch/csrc/*.cu have a plain C interface.
-At first use they are compiled by hand with nvcc for sm_90a into one
-shared library under bwamem_tpu_torch/build/ (named by a hash of the
-sources, so an edit rebuilds) and loaded with ctypes.  Nothing is built
-when a module is imported.  A failed build raises: there is no
-fallback."""
+The sources in bwamem_tpu_torch/csrc/*.cu have a plain C interface and
+share the device code of csrc/*.cuh.  At first use each source is
+compiled by hand with nvcc for sm_90a, all at once (one nvcc process per
+source), and the objects are linked into one shared library under
+bwamem_tpu_torch/build/ (named by a hash of the sources and headers, so
+an edit rebuilds) and loaded with ctypes.  Nothing is built when a
+module is imported.  A failed build raises: there is no fallback."""
 
 from __future__ import annotations
 
@@ -35,9 +36,9 @@ class KernelLib:
     log: str              # nvcc / ptxas output of the build
 
 
-def _sources() -> list[str]:
+def _sources(exts=(".cu",)) -> list[str]:
     return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
-                  if f.endswith(".cu"))
+                  if f.endswith(exts))
 
 
 def _nvcc() -> str:
@@ -54,8 +55,60 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.bwt_extend_fused.argtypes = (
         [vp, i32, vp, i32, vp, i32, vp, i32, vp, i64]
         + [i32] * 7 + [vp, vp, vp, vp])
+    lib.bwt_extend_t.restype = i32
+    lib.bwt_extend_t.argtypes = (
+        [vp, i32, vp, i32, vp, i64] + [i32] * 7 + [vp, vp, vp, vp])
     lib.bwt_error_string.restype = ctypes.c_char_p
     lib.bwt_error_string.argtypes = [i32]
+
+
+def _run(procs) -> str:
+    """Wait for every (cmd, Popen); raise on the first that failed."""
+    log, failed = "", None
+    for cmd, p in procs:
+        try:
+            out, _ = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, _ = p.communicate()
+            failed = failed or (cmd, "timed out")
+        log += out
+        if p.returncode and failed is None:
+            failed = (cmd, p.returncode)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed[1]}): {' '.join(failed[0])}"
+                           f"\n{log}")
+    return log
+
+
+def _compile(srcs, so) -> str:
+    """Compile every source at once, then link `so`; returns the log."""
+    tmp = f"{so}.{os.getpid()}"
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
+    flags = ["-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    procs = []
+    try:
+        for src, obj in zip(srcs, objs):
+            cmd = [_nvcc(), *flags, "-Xptxas", "-v", "-c", src, "-o", obj]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    except FileNotFoundError as e:
+        for _, p in procs:
+            p.kill()
+        raise RuntimeError(f"nvcc not found: {e}") from e
+    try:
+        log = _run(procs)
+        cmd = [_nvcc(), *flags, "-shared", "-o", f"{tmp}.tmp", *objs]
+        log += _run([(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))])
+        os.replace(f"{tmp}.tmp", so)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    return log
 
 
 def load() -> KernelLib:
@@ -66,29 +119,16 @@ def load() -> KernelLib:
             return _loaded
         srcs = _sources()
         h = hashlib.sha256()
-        for s in srcs:
+        for s in _sources((".cu", ".cuh")):
             with open(s, "rb") as f:
-                h.update(f.read())
+                h.update(os.path.basename(s).encode() + b"\0" + f.read())
         os.makedirs(BUILD_DIR, exist_ok=True)
         so = os.path.join(BUILD_DIR, f"libbwt_kernels_{h.hexdigest()[:16]}.so")
         log, secs = "", 0.0
         if not os.path.exists(so):
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3",
-                   "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-                   "-o", tmp] + srcs
             t0 = time.time()
-            try:
-                res = subprocess.run(cmd, capture_output=True, text=True,
-                                     timeout=600)
-            except FileNotFoundError as e:
-                raise RuntimeError(f"nvcc not found: {e}") from e
+            log = _compile(srcs, so)
             secs = time.time() - t0
-            log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{log}")
-            os.replace(tmp, so)
         lib = ctypes.CDLL(so)
         _bind(lib)
         _loaded = KernelLib(lib, so, secs, log)

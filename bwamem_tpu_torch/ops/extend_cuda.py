@@ -1,10 +1,12 @@
-"""The fused extension on the card: wrapper of csrc/extend_fused.cu.
+"""The extension kernels on the card: wrappers of csrc/extend_fused.cu
+and csrc/extend_t.cu.
 
-`extend_batch_raw_fused` dispatches on the tensors' device.  On the CPU
-it runs the plain PyTorch version (ops/extend_torch.extend_fused); on a
-CUDA device it launches the hand-written kernel or raises — there is no
-fallback.  `launches` counts kernel launches (the CPU path does not
-count)."""
+`extend_batch_raw_fused` and `extend_batch_raw_t` dispatch on the
+tensors' device.  On the CPU they run the plain PyTorch versions
+(ops/extend_torch.extend_fused, extend_t); on a CUDA device they launch
+the hand-written kernel or raise — there is no fallback.  `launches`
+counts kernel launches per kernel, keyed "extend_fused" and "extend_t"
+(the CPU path does not count)."""
 
 from __future__ import annotations
 
@@ -14,25 +16,55 @@ import torch
 
 from bwamem_tpu_torch.ops import extend_torch
 
-launches = 0
+launches = {"extend_fused": 0, "extend_t": 0}
 _count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    global launches
     with _count_lock:
-        launches = 0
+        for k in launches:
+            launches[k] = 0
 
 
-def _check(name, x, dtype, rows=None, cols=None):
+def _check(name, x, dtype, dev, rows=None, cols=None):
     if x.dtype != dtype:
         raise TypeError(f"{name}: dtype {x.dtype}, want {dtype}")
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError(f"{name}: need a contiguous 2-D tensor")
+    if x.device != dev:
+        raise ValueError(f"{name} on {x.device}, want {dev}")
     if rows is not None and x.shape[0] != rows:
         raise ValueError(f"{name}: {x.shape[0]} rows, want {rows}")
     if cols is not None and x.shape[1] != cols:
         raise ValueError(f"{name}: {x.shape[1]} lanes, want {cols}")
+    if x.shape[0] < 1:
+        raise ValueError(f"{name}: empty window")
+
+
+def _cuda_device(x):
+    """x's device when it is a CUDA device; None for the CPU."""
+    dev = x.device
+    if dev.type == "cpu":
+        return None
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _launch(name, dev, fn, *args) -> None:
+    """Call the C launcher `fn` on dev's current stream; raise if the
+    launch failed, count it if not."""
+    from bwamem_tpu_torch.ops import _build
+
+    kl = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(kl.lib, fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{name} launch failed: {kl.lib.bwt_error_string(rc)}")
+    with _count_lock:
+        launches[name] += 1
 
 
 def extend_batch_raw_fused(ql, tl, qr, tr, scal, tmax2, prm):
@@ -42,42 +74,49 @@ def extend_batch_raw_fused(ql, tl, qr, tr, scal, tmax2, prm):
     (the Pallas call's per-block row bounds) is not read: each lane
     stops at its own tlen.  Returns (32, B) int32 on the inputs'
     device."""
-    global launches
-    dev = ql.device
-    if dev.type == "cpu":
+    dev = _cuda_device(ql)
+    if dev is None:
         return extend_torch.extend_fused(ql, tl, qr, tr, scal, tmax2, prm)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    from bwamem_tpu_torch.ops import _build
-
     B = ql.shape[1]
     for name, x in (("ql", ql), ("tl", tl), ("qr", qr), ("tr", tr)):
-        _check(name, x, torch.int8, cols=B)
-        if x.device != dev:
-            raise ValueError(f"{name} on {x.device}, ql on {dev}")
-        if x.shape[0] < 1:
-            raise ValueError(f"{name}: empty window")
-    _check("scal", scal, torch.int32, rows=16, cols=B)
-    if scal.device != dev:
-        raise ValueError(f"scal on {scal.device}, ql on {dev}")
+        _check(name, x, torch.int8, dev, cols=B)
+    _check("scal", scal, torch.int32, dev, rows=16, cols=B)
     QL, QR = ql.shape[0], qr.shape[0]
     if max(QL, QR) > 1024:
         raise ValueError(f"query window {max(QL, QR)} > 1024")
-    a, b, o_del, e_del, o_ins, e_ins, zdrop = extend_torch.prm_ints(prm)
-    kl = _build.load()
     out = torch.empty((32, B), dtype=torch.int32, device=dev)
     eh_h = torch.empty((max(QL, QR) + 2, B), dtype=torch.int32, device=dev)
     eh_e = torch.empty_like(eh_h)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = kl.lib.bwt_extend_fused(
+    _launch("extend_fused", dev, "bwt_extend_fused",
             ql.data_ptr(), QL, tl.data_ptr(), tl.shape[0], qr.data_ptr(),
-            QR, tr.data_ptr(), tr.shape[0], scal.data_ptr(), B, a, b,
-            o_del, e_del, o_ins, e_ins, zdrop, out.data_ptr(),
-            eh_h.data_ptr(), eh_e.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"extend_fused launch failed: {kl.lib.bwt_error_string(rc)}")
-    with _count_lock:
-        launches += 1
+            QR, tr.data_ptr(), tr.shape[0], scal.data_ptr(), B,
+            *extend_torch.prm_ints(prm), out.data_ptr(), eh_h.data_ptr(),
+            eh_e.data_ptr())
+    return out
+
+
+def extend_batch_raw_t(query_t, target_t, scal_t, tmax, prm):
+    """One banded pass per lane (see extend_torch.extend_t for the
+    layout).  On CUDA the windows must be int8 and scal_t (8, B) int32,
+    all contiguous on one device, and qmax <= 1024 (the packed argmax
+    key of the plain version and the Pallas kernel).  tmax (the Pallas
+    call's per-block row bounds) is not read: each lane stops at its
+    own tlen.  Returns (8, B) int32 on the inputs' device."""
+    dev = _cuda_device(query_t)
+    if dev is None:
+        return extend_torch.extend_t(query_t, target_t, scal_t, tmax, prm)
+    qmax, B = query_t.shape
+    _check("query_t", query_t, torch.int8, dev, cols=B)
+    _check("target_t", target_t, torch.int8, dev, cols=B)
+    _check("scal_t", scal_t, torch.int32, dev, rows=8, cols=B)
+    if qmax > 1024:
+        raise ValueError(f"query window {qmax} > 1024")
+    out = torch.empty((8, B), dtype=torch.int32, device=dev)
+    eh_h = torch.empty((qmax + 2, B), dtype=torch.int32, device=dev)
+    eh_e = torch.empty_like(eh_h)
+    _launch("extend_t", dev, "bwt_extend_t",
+            query_t.data_ptr(), qmax, target_t.data_ptr(),
+            target_t.shape[0], scal_t.data_ptr(), B,
+            *extend_torch.prm_ints(prm), out.data_ptr(), eh_h.data_ptr(),
+            eh_e.data_ptr())
     return out

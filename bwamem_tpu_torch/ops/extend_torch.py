@@ -4,15 +4,16 @@ oracle its CUDA kernel is held to.
 A line-for-line counterpart of the Pallas kernel bodies in
 bwamem_tpu/ops/extend_pallas.py: `band_pass` is `_band_pass` (one
 banded ksw_extend2 pass, every lane at once, in the transposed
-(qmax, B) layout: query columns on dim 0, lanes on dim 1) and
+(qmax, B) layout: query columns on dim 0, lanes on dim 1),
 `extend_fused` is `_extend_kernel_fused` (L0, the L1 band-doubling
-retry, R0 seeded with the left score, the R1 retry).  The serial F
-recurrence is a prefix max (`torch.cummax`) over
+retry, R0 seeded with the left score, the R1 retry) and `extend_t` is
+`_extend_kernel_t` (one pass per lane: the per-phase protocol).  The
+serial F recurrence is a prefix max (`torch.cummax`) over
 P[k] = M[k] + e_ins*k - oe_ins, exactly as the Pallas form computes it.
 
-Outputs are bit-identical to the Pallas kernel on every lane and all 32
-rows, padding lanes and lanes that did not retry included: an invalid
-or inactive lane (qlen, tlen or h0 <= 0, or a retry lane that
+Outputs are bit-identical to the Pallas kernels on every lane and row,
+padding lanes and lanes that did not retry included: an invalid or
+inactive lane (qlen, tlen or h0 <= 0, or a retry lane that
 converged) gives best = h0, qle = tle = gtle = 0, gscore = -1,
 max_off = 0 and the pass's aw.
 """
@@ -194,3 +195,17 @@ def extend_fused(ql, tl, qr, tr, scal, tmax2, prm):
             + _group(r0, scal[7]) + _group(r1, scal[8]))
     return torch.stack(rows, 0).to(torch.int32)
 
+
+def extend_t(query_t, target_t, scal_t, tmax, prm):
+    """One banded pass per lane, plain PyTorch.
+
+    query_t (QM, B), target_t (TM, B): base codes; scal_t (8, B) int32
+    with rows [qlen, tlen, aw, h0, 0...]; tmax (B/blk,) per-block row
+    bounds, which only bound loops and so are not needed here.  Returns
+    (8, B) int32: [score, qle, tle, gtle, gscore, max_off, aw, 0].
+    """
+    del tmax
+    scal_t = scal_t.to(torch.int32)
+    res = band_pass(target_t, query_t, scal_t[0], scal_t[1], scal_t[2],
+                    scal_t[3], prm)
+    return torch.stack(_group(res, scal_t[2]), 0).to(torch.int32)

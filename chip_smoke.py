@@ -6,22 +6,37 @@ Run from the root of the repository on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phases, each of which fails the run (exit code 1, no result line):
-  1. build   the CUDA kernels from bwamem_tpu_torch/csrc with nvcc;
+  1. build   the CUDA kernels from bwamem_tpu_torch/csrc with nvcc (one
+             process per source, all at once);
   2. kernel  the fused extension kernel against its plain PyTorch version
              on the same CUDA tensors (all 32 rows, every lane) at the
              main path's shapes, its L0 group against the scalar
              bwa-0.7.8 oracle on 96 lanes, and both timed with CUDA
              events;
-  3. gather  the resident-reference gathers on the GPU against the same
+  3. kernel_t the per-phase kernel (extend_t) against its plain version
+             (all 8 rows, every lane) at (qmax, tmax) = (160, 320) and
+             (1024, 64), fields 0-5 against the scalar oracle on 96
+             lanes, and both timed at bench.py's shape;
+  4. gather  the resident-reference gathers on the GPU against the same
              gathers on the CPU at their edge cases;
-  4. main    `python -m bwamem_tpu_torch index|mem` (in this process) on
+  5. main    `python -m bwamem_tpu_torch index|mem` (in this process) on
              a simulated 4,641,652 bp genome: 32,768 single-end reads
              and 8,192 FR pairs through `--backend cuda`; mapping
              accuracy, kernel launches == fused dispatches, and the SAM
              of a subset byte-identical to `--backend torch` on the CPU.
              The port's C++ host library builds at the first `mem`, which
-             exits non-zero if it cannot.
-The last line of standard output is {"ok": true, "device": {...}}.
+             exits non-zero if it cannot;
+  6. phased  the same reads through the four-pass protocol (`--phased`,
+             extend_t launches == the extend_{L,R}{0,1} trace rows) and
+  7. ship-ref through host-shipped windows (`--ship-ref`, extend_fused
+             launches == extend_fused trace rows): SAM byte-identical to
+             the resident run of phase 5 over all reads;
+  8. python  the Python host (`--host python --backend cuda`) on the
+             first 4,096 reads and 2,048 pairs: SAM byte-identical to
+             the native resident run on the same files.
+Each path's launch counts are set to 0 just before it and read just
+after.  The last line of standard output is {"ok": true, "device":
+{...}}.
 
 This script imports no JAX.  It reaches the reference package's JAX-free
 host modules only through the port (which reuses its C++ host) and
@@ -31,6 +46,7 @@ numpy `ksw_extend_core`.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -49,9 +65,12 @@ READ_LEN = 150
 N_SE = 32_768
 N_PE = 8_192
 SUB_SE, SUB_PE = 2_048, 1_024
+PY_SE, PY_PE = 4_096, 2_048        # the Python host's subset (it is slow)
 GATE_B = 8192
 GATE_DIMS = (160, 320, 160, 320)   # the main path's (QL, TL, QR, TR)
 WIDE_DIMS = (1024, 64, 1024, 64)   # the widest query window
+T_GATE_DIMS = ((160, 320), (1024, 64))   # extend_t (qmax, tmax)
+PRM = np.array([1, 4, 6, 1, 6, 1, 100, 0], np.int32)  # bwa -Ma, zdrop on
 
 
 def log(msg: str) -> None:
@@ -85,7 +104,7 @@ def phase_kernel(dev):
     import _torch_gate as gate
     from bwamem_tpu_torch.ops import extend_cuda, extend_torch
 
-    prm = np.array([1, 4, 6, 1, 6, 1, 100, 0], np.int32)  # bwa -Ma, zdrop on
+    prm = PRM
     result = {}
     for dims, seed in ((GATE_DIMS, 1), (WIDE_DIMS, 2)):
         batch = gate.random_fused_batch(seed, GATE_B, dims, n_pad=100)
@@ -119,6 +138,78 @@ def phase_kernel(dev):
                 f"PyTorch {plain_ms:.3f} ms (CUDA events)")
             result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
     return result
+
+
+def bench_t_batch():
+    """bench.py's timed per-phase batch (bench.py:55-67): B = 16384
+    lanes, qlen 100 in a 104 window, tlen 200 in a 256 window (the
+    target is the query with 6 substitutions and a random tail), w 100,
+    h0 19.  Returns the (qmax, B) / (tmax, B) int8 windows, the (8, B)
+    scalars, the row bounds and the band-cell count B * 200 * min(100,
+    2 * 100 + 1)."""
+    from bwamem_tpu_torch.ops.extend import pack_scal
+
+    B, QMAX, TMAX, QLEN, TLEN, W = 16384, 104, 256, 100, 200, 100
+    rng = np.random.default_rng(0)
+    query = rng.integers(0, 4, (B, QMAX)).astype(np.int32)
+    target = rng.integers(0, 4, (B, TMAX)).astype(np.int32)
+    target[:, :QLEN] = query[:, :QLEN]
+    muts = rng.integers(0, QLEN, (B, 6))
+    target[np.arange(B)[:, None], muts] = rng.integers(0, 4, (B, 6))
+    scal, tmax = pack_scal(np.full(B, QLEN), np.full(B, TLEN),
+                           np.full(B, W), np.full(B, 19), blk_b=128)
+    return (np.ascontiguousarray(query.T, np.int8),
+            np.ascontiguousarray(target.T, np.int8),
+            np.ascontiguousarray(scal.T), tmax,
+            B * TLEN * min(QLEN, 2 * W + 1))
+
+
+def phase_kernel_t(dev):
+    import torch
+
+    import _torch_gate as gate
+    from bwamem_tpu_torch.ops import extend_cuda, extend_torch
+
+    for (qmax, tmax), seed in zip(T_GATE_DIMS, (3, 4)):
+        q, t, scal, bounds = gate.random_t_batch(seed, GATE_B, qmax, tmax,
+                                                 n_pad=100)
+        args = [torch.from_numpy(x).to(dev) for x in (q, t, scal)]
+        got = extend_cuda.extend_batch_raw_t(*args, bounds, PRM)
+        torch.cuda.synchronize()
+        want = extend_torch.extend_t(*args, bounds, PRM)
+        if not torch.equal(got, want):
+            bad = (got != want).nonzero()[:5].tolist()
+            fail(f"extend_t kernel != plain at ({qmax}, {tmax}): first "
+                 f"(row, lane) {bad}")
+        lanes = gate.valid_l0_lanes(scal)[:96]
+        bad = gate.l0_scalar_mismatches(got.cpu().numpy(), q, t, scal, PRM,
+                                        lanes)
+        if len(lanes) != 96 or bad:
+            fail(f"extend_t != ksw_extend_core at ({qmax}, {tmax}): "
+                 f"{bad[:3]}")
+        log(f"extend_t kernel == plain on all 8 rows x {GATE_B} lanes at "
+            f"(qmax, tmax)=({qmax}, {tmax}) (max_abs_err 0, "
+            f"{int((scal[0] == 0).sum())} lanes without a task); fields "
+            f"0-5 == ksw_extend_core on 96 lanes")
+
+    q, t, scal, bounds, cells = bench_t_batch()
+    prm = PRM.copy()
+    prm[6] = 0  # bench.py's zdrop
+    args = [torch.from_numpy(x).to(dev) for x in (q, t, scal)]
+    got = extend_cuda.extend_batch_raw_t(*args, bounds, prm)
+    torch.cuda.synchronize()
+    if not torch.equal(got, extend_torch.extend_t(*args, bounds, prm)):
+        fail("extend_t kernel != plain at bench.py's shape")
+    ms = cuda_ms(lambda: extend_cuda.extend_batch_raw_t(*args, bounds, prm),
+                 10)
+    plain_ms = cuda_ms(lambda: extend_torch.extend_t(*args, bounds, prm), 2)
+    log(f"extend_t time at bench.py's shape (B=16384, qmax 104, tmax 256, "
+        f"qlen 100, tlen 200, w 100, zdrop 0): kernel {ms:.3f} ms, plain "
+        f"PyTorch {plain_ms:.3f} ms (CUDA events); {cells} band cells -> "
+        f"kernel {cells / ms / 1e6:.3f}, plain {cells / plain_ms / 1e6:.3f} "
+        f"Gcell/s (lanes stop at row_max == 0, unlike bench.py's "
+        f"early_exit=False: not comparable with any bench.py figure)")
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms}
 
 
 def phase_gather(dev):
@@ -257,6 +348,34 @@ def sam_body(path):
         return [l for l in f if not l.startswith("@PG")]
 
 
+def same_sam(path_a, path_b, what):
+    """Fail unless the two SAM files are byte-identical apart from @PG."""
+    a, b = sam_body(path_a), sam_body(path_b)
+    if a != b:
+        diff = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                    min(len(a), len(b)))
+        fail(f"{what}: SAM differs at line {diff} ({len(a)} vs {len(b)} "
+             f"lines):\n{a[diff:diff + 1]}\n{b[diff:diff + 1]}")
+    return len(a)
+
+
+def run_mem(tmp, tag, fa, reads, flags):
+    """`mem` with `flags` on `reads` and its per-batch trace; returns the
+    SAM path, the trace rows counted by kind, the align rate and the
+    captured standard error."""
+    trace = os.path.join(tmp, f"{tag}.trace.jsonl")
+    sam = os.path.join(tmp, f"{tag}.sam")
+    text = run_cli(["mem", *flags, "--trace", trace, fa, *reads], sam)
+    with open(trace) as f:
+        kinds = collections.Counter(json.loads(l)["kind"] for l in f)
+    m = re.search(r"\[mem\] align: .*", text)
+    if not m:
+        fail(f"{tag}: no [mem] align: line")
+    rate = float(re.search(r"= ([0-9.]+) reads/s", m.group(0)).group(1))
+    log(f"{tag}: {m.group(0)}")
+    return sam, kinds, rate, text
+
+
 def phase_main(tmp, threads):
     from bwamem_tpu_torch.__main__ import main
     from bwamem_tpu_torch.ops import extend_cuda
@@ -274,23 +393,15 @@ def phase_main(tmp, threads):
     log(f"index built ({time.time() - t0:.1f}s)")
 
     common = ["-b", "2048", "--inflight", "3", "-t", str(threads)]
-    rates = {}
+    inputs = {"SE": [se], "PE": [pe1, pe2]}
+    rates, sams = {}, {}
     dispatches = 0
     extend_cuda.reset_launches()
-    for label, reads in (("SE", [se]), ("PE", [pe1, pe2])):
-        trace = os.path.join(tmp, f"{label}.trace.jsonl")
-        sam = os.path.join(tmp, f"{label}.sam")
-        text = run_cli(["mem", "--backend", "cuda", *common, "--trace",
-                        trace, fa, *reads], sam)
-        with open(trace) as f:
-            dispatches += sum(json.loads(l)["kind"] == "extend_fused"
-                              for l in f)
-        m = re.search(r"\[mem\] align: .*", text)
-        if not m:
-            fail(f"{label}: no [mem] align: line")
-        rate = float(re.search(r"= ([0-9.]+) reads/s", m.group(0)).group(1))
-        rates[label] = rate
-        log(f"{label} --backend cuda: {m.group(0)}")
+    for label, reads in inputs.items():
+        sam, kinds, rates[label], text = run_mem(
+            tmp, label, fa, reads, ["--backend", "cuda", *common])
+        sams[label] = sam
+        dispatches += kinds["extend_fused"]
         for line in text.splitlines():
             if line.startswith("[mem] counters:"):
                 log(f"{label} {line}")
@@ -301,9 +412,10 @@ def phase_main(tmp, threads):
                  f"simulated position (need >= 95% of {want})")
         log(f"{label}: {good}/{seen} = {100.0 * good / seen:.2f}% of ends "
             f"map within 10 bp of their simulated position")
-    launches = extend_cuda.launches
-    if launches != dispatches or launches == 0:
-        fail(f"kernel launches {launches} != fused dispatches {dispatches}")
+    counts = dict(extend_cuda.launches)
+    launches = counts["extend_fused"]
+    if launches != dispatches or launches == 0 or counts["extend_t"]:
+        fail(f"kernel launches {counts} != fused dispatches {dispatches}")
     log(f"main path: extend_fused kernel launches {launches} == fused "
         f"dispatches {dispatches}")
 
@@ -313,24 +425,82 @@ def phase_main(tmp, threads):
                    head_fastq(pe2, os.path.join(tmp, "pe2_sub.fq"),
                               SUB_PE)])]
     for label, reads in sub:
-        bodies = []
+        paths = []
         for backend in ("cuda", "torch"):
-            sam = os.path.join(tmp, f"{label}_sub_{backend}.sam")
+            paths.append(os.path.join(tmp, f"{label}_sub_{backend}.sam"))
             t0 = time.time()
-            run_cli(["mem", "--backend", backend, *common, fa, *reads], sam)
-            bodies.append(sam_body(sam))
-            log(f"{label} subset --backend {backend}: {len(bodies[-1])} "
-                f"lines ({time.time() - t0:.1f}s)")
-        if bodies[0] != bodies[1]:
-            diff = next(i for i, (a, b) in enumerate(zip(*bodies)) if a != b)
-            fail(f"{label} subset SAM differs at line {diff}:\n"
-                 f"{bodies[0][diff]}{bodies[1][diff]}")
+            run_cli(["mem", "--backend", backend, *common, fa, *reads],
+                    paths[-1])
+            log(f"{label} subset --backend {backend}: "
+                f"{len(sam_body(paths[-1]))} lines ({time.time() - t0:.1f}s)")
+        same_sam(*paths, f"{label} subset cuda vs torch")
         log(f"{label} subset SAM byte-identical (apart from @PG): cuda == "
             f"torch on the CPU")
+    return launches, rates, dict(fa=fa, inputs=inputs, sams=sams,
+                                 common=common)
+
+
+def phase_native_path(tmp, run, name, flag, kernel, row_kinds):
+    """`mem --backend cuda <flag>` over all SE reads and pairs: SAM
+    byte-identical to the resident run, and `kernel`'s launches (the
+    only kernel launched) == the trace rows of `row_kinds`."""
+    from bwamem_tpu_torch.ops import extend_cuda
+
+    rates = {}
+    dispatches = 0
+    extend_cuda.reset_launches()
+    for label, reads in run["inputs"].items():
+        sam, kinds, rates[label], _ = run_mem(
+            tmp, f"{label}_{name}", run["fa"], reads,
+            ["--backend", "cuda", flag, *run["common"]])
+        dispatches += sum(kinds[k] for k in row_kinds)
+        n = same_sam(run["sams"][label], sam, f"{label} {flag} vs resident")
+        log(f"{label} {flag} SAM byte-identical to the resident run "
+            f"(apart from @PG; {n} lines)")
+    counts = dict(extend_cuda.launches)
+    launches = counts[kernel]
+    others = {k: v for k, v in counts.items() if k != kernel and v}
+    if launches != dispatches or launches == 0 or others:
+        fail(f"{flag}: kernel launches {counts} != {kernel} dispatches "
+             f"{dispatches} (trace rows {row_kinds})")
+    log(f"{flag}: {kernel} kernel launches {launches} == trace rows "
+        f"{'+'.join(row_kinds)} {dispatches}")
     return launches, rates
 
 
+def phase_python_host(tmp, run):
+    """`mem --host python --backend cuda` on the first PY_SE reads and
+    PY_PE pairs (whole -b 2048 chunks, so PE insert-size inference sees
+    the same pairs) against the native resident run on the same files."""
+    from bwamem_tpu_torch.ops import extend_cuda
+
+    se, (pe1, pe2) = run["inputs"]["SE"], run["inputs"]["PE"]
+    sub = {"SE": [head_fastq(se[0], os.path.join(tmp, "se_py.fq"), PY_SE)],
+           "PE": [head_fastq(pe1, os.path.join(tmp, "pe1_py.fq"), PY_PE),
+                  head_fastq(pe2, os.path.join(tmp, "pe2_py.fq"), PY_PE)]}
+    native = {}
+    for label, reads in sub.items():
+        native[label], _, _, _ = run_mem(
+            tmp, f"{label}_py_native", run["fa"], reads,
+            ["--backend", "cuda", *run["common"]])
+    rates = {}
+    extend_cuda.reset_launches()
+    for label, reads in sub.items():
+        sam, _, rates[label], _ = run_mem(
+            tmp, f"{label}_py", run["fa"], reads,
+            ["--host", "python", "--backend", "cuda", *run["common"]])
+        n = same_sam(native[label], sam, f"{label} --host python vs native")
+        log(f"{label} --host python SAM byte-identical to the native "
+            f"resident run (apart from @PG; {n} lines)")
+    counts = dict(extend_cuda.launches)
+    if counts["extend_t"] == 0 or counts["extend_fused"]:
+        fail(f"--host python: kernel launches {counts}")
+    log(f"--host python: extend_t kernel launches {counts['extend_t']}")
+    return counts["extend_t"], rates
+
+
 def main() -> int:
+    t_start = time.time()
     try:
         import torch
     except ImportError:
@@ -363,20 +533,37 @@ def main() -> int:
         f"{os.path.relpath(kl.path, root)}; ptxas: {regs}")
 
     timing = phase_kernel(dev)
+    timing_t = phase_kernel_t(dev)
     phase_gather(dev)
     tmp = tempfile.mkdtemp(prefix="bwamem_smoke_")
     try:
-        launches, rates = phase_main(tmp, min(os.cpu_count() or 1, 8))
+        launches, rates, run = phase_main(tmp, min(os.cpu_count() or 1, 8))
+        launches_t, rates_phased = phase_native_path(
+            tmp, run, "phased", "--phased", "extend_t",
+            ("extend_L0", "extend_L1", "extend_R0", "extend_R1"))
+        _, rates_ship = phase_native_path(
+            tmp, run, "ship_ref", "--ship-ref", "extend_fused",
+            ("extend_fused",))
+        _, rates_py = phase_python_host(tmp, run)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log(f"SE {rates['SE']:.1f} reads/s, PE {rates['PE']:.1f} reads/s "
-        f"(--backend cuda, -b 2048 --inflight 3) on {smi}")
+    for name, r in (("resident (default)", rates), ("--phased", rates_phased),
+                    ("--ship-ref", rates_ship),
+                    (f"--host python ({PY_SE} reads, {PY_PE} pairs)",
+                     rates_py)):
+        log(f"{name}: SE {r['SE']:.1f} reads/s, PE {r['PE']:.1f} reads/s "
+            f"(--backend cuda, -b 2048 --inflight 3) on {smi}")
+    log(f"total wall {time.time() - t_start:.1f}s")
     print(smi, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "extend_fused", "route": "cuda",
-        "source": "bwamem_tpu_torch/csrc/extend_fused.cu",
-        "replaces": "bwamem_tpu/ops/extend_pallas.py:292",
-        "launches": launches, **timing}]}), flush=True)
+    print(json.dumps({"kernels": [
+        {"name": "extend_fused", "route": "cuda",
+         "source": "bwamem_tpu_torch/csrc/extend_fused.cu",
+         "replaces": "bwamem_tpu/ops/extend_pallas.py:292",
+         "launches": launches, **timing},
+        {"name": "extend_t", "route": "cuda",
+         "source": "bwamem_tpu_torch/csrc/extend_t.cu",
+         "replaces": "bwamem_tpu/ops/extend_pallas.py:255",
+         "launches": launches_t, **timing_t}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

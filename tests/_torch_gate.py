@@ -1,6 +1,6 @@
-"""Correctness gate inputs for the fused extension: a seeded random batch
-that reaches every branch of the kernel, and the check of its L0 group
-against the scalar bwa-0.7.8 oracle.  Shared by the tests of the port
+"""Correctness gate inputs for the extension kernels: seeded random
+batches that reach every branch of the fused and the per-phase kernel,
+and the check of one pass's fields against the scalar bwa-0.7.8 oracle.  Shared by the tests of the port
 and chip_smoke.py (which puts this directory on sys.path)."""
 
 from __future__ import annotations
@@ -72,26 +72,55 @@ def random_fused_batch(seed, B, dims, *, n_pad=0, blk_l=512):
     scal[6][kind == 5] = 0                      # empty right target
     if n_pad:
         scal[:, B - n_pad:] = 0
-    grid = B // blk_l
-    tmax2 = np.zeros((grid, 2), np.int32)
-    for k, (rq, rt) in enumerate(((0, 1), (5, 6))):
-        tmax2[:, k] = np.max(np.where(
-            scal[rq].reshape(grid, blk_l) > 0,
-            scal[rt].reshape(grid, blk_l), 0), axis=1)
+    tmax2 = np.stack([_row_bounds(scal[0], scal[1], blk_l),
+                      _row_bounds(scal[5], scal[6], blk_l)], 1)
     return ql, tl, qr, tr, scal, tmax2
 
 
+def _row_bounds(qlen, tlen, blk_l):
+    """Per-block row bound: the longest tlen among lanes with qlen > 0."""
+    grid = len(qlen) // blk_l
+    return np.max(np.where(qlen.reshape(grid, blk_l) > 0,
+                           tlen.reshape(grid, blk_l), 0),
+                  axis=1).astype(np.int32)
+
+
+def random_t_batch(seed, B, qmax, tmax, *, n_pad=0, blk_l=512):
+    """A per-phase batch (query_t, target_t, scal_t, tmax) of B lanes,
+    numpy: (qmax, B) / (tmax, B) int8 windows with N codes, scal_t (8, B)
+    int32 = [qlen, tlen, aw, h0, 0...] and the (B/blk_l,) row bounds.
+    The last `n_pad` lanes are padding (all scalars 0); among the rest
+    some lanes have qlen, tlen or h0 of 0, and the band varies."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(4, max(5, min(101, tmax // 2)), B).astype(np.int32)
+    q, t, qlen, tlen = _task(rng, B, qmax, tmax, w)
+    scal = np.zeros((8, B), np.int32)
+    scal[0], scal[1], scal[2] = qlen, tlen, w
+    scal[3] = rng.integers(1, 60, B)
+    kind = rng.integers(0, 16, B)
+    scal[0][kind == 1] = 0                      # no task
+    scal[1][kind == 2] = 0                      # empty target
+    scal[3][kind == 3] = 0                      # h0 = 0: nothing runs
+    if n_pad:
+        scal[:, B - n_pad:] = 0
+    return q, t, scal, _row_bounds(scal[0], scal[1], blk_l)
+
+
 def valid_l0_lanes(scal) -> np.ndarray:
-    """Lanes whose L0 task the scalar oracle can run."""
+    """Lanes whose first task (the fused L0, or the per-phase pass: both
+    read qlen, tlen and h0 from scal rows 0, 1 and 3) the scalar oracle
+    can run."""
     scal = np.asarray(scal)
     return np.flatnonzero((scal[0] > 0) & (scal[1] > 0) & (scal[3] > 0))
 
 
 def l0_scalar_mismatches(out, ql, tl, scal, prm, lanes) -> list:
-    """Hold the L0 group of a fused result (32, B) against the scalar
-    bwa-0.7.8 oracle bwamem_tpu.ops.extend_ref.ksw_extend_core on
-    `lanes` (numpy inputs; valid lanes, codes 0..4).  Returns the
-    mismatching (lane, got, want) triples."""
+    """Hold fields 0-5 of a result against the scalar bwa-0.7.8 oracle
+    bwamem_tpu.ops.extend_ref.ksw_extend_core on `lanes`: the L0 group
+    of a fused (32, B) result with its ql, tl and (16, B) scal, or an
+    extend_t (8, B) result with its query, target and (8, B) scal
+    (numpy inputs; valid lanes, codes 0..4).  Returns the mismatching
+    (lane, got, want) triples."""
     a, b, o_del, e_del, o_ins, e_ins, zdrop = prm_ints(prm)
     mat = build_mat(a, b)
     bad = []

@@ -1,11 +1,13 @@
-"""The hand-written CUDA kernel (bwamem_tpu_torch/csrc/extend_fused.cu)
-against its plain PyTorch version on the same CUDA tensors, exact on
-all 32 rows and every lane, and the port's backend on the GPU against
-the same backend on the CPU.  The tests marked `cuda` need an NVIDIA
+"""The hand-written CUDA kernels (bwamem_tpu_torch/csrc/extend_fused.cu,
+extend_t.cu) against their plain PyTorch versions on the same CUDA
+tensors, exact on every row and lane, and the port's backend on the GPU
+against the same backend on the CPU.  The tests marked `cuda` need an NVIDIA
 GPU and skip without one; run them on the card with
 `python -m pytest --noconftest tests/test_torch_cuda.py -q` (this file
 needs no JAX; tests/conftest.py imports it)."""
 
+import contextlib
+import io
 import os
 import subprocess
 import sys
@@ -37,15 +39,32 @@ def _prm(zdrop=100):
 def test_kernel_matches_plain(cuda, dims, zdrop):
     batch = gate.random_fused_batch(17, 2048, dims, n_pad=37)
     t = [torch.from_numpy(x).to(cuda) for x in batch]
-    before = extend_cuda.launches
+    before = extend_cuda.launches["extend_fused"]
     got = extend_cuda.extend_batch_raw_fused(*t, _prm(zdrop))
     torch.cuda.synchronize()
-    assert extend_cuda.launches == before + 1
+    assert extend_cuda.launches["extend_fused"] == before + 1
     want = extend_torch.extend_fused(*t, _prm(zdrop))
     assert torch.equal(got, want)
     lanes = gate.valid_l0_lanes(batch[4])[:96]
     assert gate.l0_scalar_mismatches(got.cpu().numpy(), batch[0], batch[1],
                                      batch[4], _prm(zdrop), lanes) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qmax,tmax,zdrop", [(160, 320, 100), (160, 320, 0),
+                                             (1024, 64, 100)])
+def test_extend_t_kernel_matches_plain(cuda, qmax, tmax, zdrop):
+    batch = gate.random_t_batch(18, 2048, qmax, tmax, n_pad=41)
+    t = [torch.from_numpy(x).to(cuda) for x in batch[:3]] + [batch[3]]
+    before = extend_cuda.launches["extend_t"]
+    got = extend_cuda.extend_batch_raw_t(*t, _prm(zdrop))
+    torch.cuda.synchronize()
+    assert extend_cuda.launches["extend_t"] == before + 1
+    want = extend_torch.extend_t(*t, _prm(zdrop))
+    assert torch.equal(got, want)
+    lanes = gate.valid_l0_lanes(batch[2])[:96]
+    assert gate.l0_scalar_mismatches(got.cpu().numpy(), batch[0], batch[1],
+                                     batch[2], _prm(zdrop), lanes) == []
 
 
 @pytest.mark.cuda
@@ -106,3 +125,29 @@ def test_cuda_backend_without_gpu_exits_nonzero(tmp_path):
                         "--backend", "cuda", str(fa), str(fq)], **run)
     assert r.returncode != 0
     assert "torch.cuda.is_available() is False" in r.stderr
+    # the other paths with a device backend fail the same way
+    from bwamem_tpu_torch.__main__ import main
+
+    for flags in (["--host", "python"], ["--phased"], ["--ship-ref"]):
+        err = io.StringIO()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(err):
+            rc = main(["mem", "--backend", "cuda", *flags, str(fa), str(fq)])
+        assert rc != 0, flags
+        assert "torch.cuda.is_available() is False" in err.getvalue(), flags
+
+
+@pytest.mark.parametrize("nvcc", ["missing", "fails"])
+def test_failed_build_raises(tmp_path, monkeypatch, nvcc):
+    """No fallback: a kernel build that cannot run nvcc, or whose nvcc
+    fails, raises instead of leaving a path without its kernel."""
+    from bwamem_tpu_torch.ops import _build
+
+    tool = str(tmp_path / "nvcc") if nvcc == "missing" else "false"
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_loaded", None)
+    monkeypatch.setattr(_build, "_nvcc", lambda: tool)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.load()
+    assert _build._loaded is None
+    assert os.listdir(tmp_path / "build") == []

@@ -1,9 +1,12 @@
-"""The port's plain fused extension (bwamem_tpu_torch/ops/extend_torch.py)
-against the JAX package's Pallas kernel in interpret mode
-(extend_pallas.extend_batch_raw_fused) and the scalar bwa-0.7.8 oracle
-(extend_ref.ksw_extend_core).  Inputs are made from a seed with numpy;
-tolerance is exact — every output is an integer — on all 32 rows and
-every lane, padding lanes and lanes that did not retry included."""
+"""The port's plain extensions (bwamem_tpu_torch/ops/extend_torch.py:
+the fused four-pass and the per-phase one-pass) against the JAX
+package's Pallas kernels in interpret mode
+(extend_pallas.extend_batch_raw_fused, extend_batch_raw_t) and the
+scalar bwa-0.7.8 oracle (extend_ref.ksw_extend_core), and the port's
+host half (ops/extend.py) against extend_pallas's.  Inputs are made
+from a seed with numpy; tolerance is exact — every output is an
+integer — on every row and lane, padding lanes and lanes that did not
+retry included."""
 
 import numpy as np
 import pytest
@@ -14,7 +17,8 @@ import jax.numpy as jnp
 from bwamem_tpu.config import build_mat
 from bwamem_tpu.ops import extend_pallas
 from bwamem_tpu.ops.extend_ref import ksw_extend_core
-from bwamem_tpu_torch.ops import extend_cuda, extend_torch
+from bwamem_tpu.ops.extend_jax import ExtendParams
+from bwamem_tpu_torch.ops import extend, extend_cuda, extend_torch, types
 
 import _torch_gate as gate
 
@@ -127,8 +131,108 @@ def test_band_pass_matches_ksw_extend_core(seed, pen):
 
 
 def test_cuda_path_refuses_non_cuda_devices():
-    """The wrapper takes the plain path only for CPU tensors."""
+    """The wrappers take the plain path only for CPU tensors."""
     batch = gate.random_fused_batch(0, BLK, (16, 16, 16, 16), blk_l=BLK)
     meta = [torch.from_numpy(x).to("meta") for x in batch]
     with pytest.raises(ValueError):
         extend_cuda.extend_batch_raw_fused(*meta, _prm())
+    batch = gate.random_t_batch(0, BLK, 16, 16, blk_l=BLK)
+    meta = [torch.from_numpy(x).to("meta") for x in batch]
+    with pytest.raises(ValueError):
+        extend_cuda.extend_batch_raw_t(*meta, _prm())
+
+
+def _pallas_t(batch, prm):
+    q, t, scal, tmax = batch
+    return np.asarray(extend_pallas.extend_batch_raw_t(
+        jnp.asarray(q.astype(np.int32)), jnp.asarray(t.astype(np.int32)),
+        jnp.asarray(scal), jnp.asarray(tmax), prm=jnp.asarray(prm),
+        blk_l=BLK, interpret=True))
+
+
+def _plain_t(batch, prm):
+    out = extend_cuda.extend_batch_raw_t(
+        *(torch.from_numpy(x) for x in batch), prm)
+    assert out.dtype == torch.int32 and out.shape == (8, batch[2].shape[1])
+    return out.numpy()
+
+
+@pytest.mark.parametrize("pen", [(1, 4, 6, 1, 6, 1), (1, 4, 5, 2, 7, 3),
+                                 (2, 3, 2, 1, 2, 1)])
+@pytest.mark.parametrize("zdrop", [100, 0])
+def test_extend_t_matches_pallas(pen, zdrop):
+    """Plain extend_t == _extend_kernel_t on all 8 rows and every lane:
+    penalty grid x zdrop on/off; N codes, padding lanes and lanes with
+    qlen, tlen or h0 of 0 in every batch."""
+    batch = gate.random_t_batch(sum(pen) * 5 + zdrop, 2 * BLK, 48, 96,
+                                n_pad=19, blk_l=BLK)
+    prm = _prm(*pen, zdrop=zdrop)
+    want = _pallas_t(batch, prm)
+    got = _plain_t(batch, prm)
+    bad = np.argwhere(got != want)
+    assert bad.size == 0, (bad[:8], got[tuple(bad[0])], want[tuple(bad[0])])
+    scal = batch[2]
+    live = (scal[0] > 0) & (scal[1] > 0) & (scal[3] > 0)
+    assert live.any() and (~live[:-19]).any() and (batch[0] == 4).any()
+
+
+def test_extend_t_matches_pallas_full_width_query():
+    """qmax = 1024, the widest query window, with lanes at qlen == qmax."""
+    batch = gate.random_t_batch(4, BLK, 1024, 40, n_pad=3, blk_l=BLK)
+    assert (batch[2][0] == 1024).any()
+    prm = _prm()
+    assert np.array_equal(_plain_t(batch, prm), _pallas_t(batch, prm))
+
+
+def test_extend_t_matches_scalar_oracle():
+    """Fields 0-5 of the plain extend_t == ksw_extend_core lane by lane
+    (the on-card gate of chip_smoke.py, here on the CPU)."""
+    batch = gate.random_t_batch(10, BLK, 96, 160, blk_l=BLK)
+    prm = _prm()
+    out = _plain_t(batch, prm)
+    lanes = gate.valid_l0_lanes(batch[2])[:96]
+    assert len(lanes) == 96
+    assert gate.l0_scalar_mismatches(out, batch[0], batch[1], batch[2],
+                                     prm, lanes) == []
+
+
+def _tasks(seed, B, qmax, tmax):
+    """B row-major tasks (query (B, qmax), target (B, tmax) int32) with
+    their lengths, bands, h0 and gap bounds; the last 7 are padding."""
+    rng = np.random.default_rng(seed)
+    q, t, qlen, tlen = gate._task(rng, B, qmax, tmax,
+                                  rng.integers(4, 40, B))
+    qlen[-7:] = 0
+    w = rng.integers(4, 60, B).astype(np.int32)
+    h0 = rng.integers(1, 50, B).astype(np.int32)
+    max_ins = rng.integers(10, 120, B).astype(np.int32)
+    max_del = rng.integers(10, 120, B).astype(np.int32)
+    return (q.T.astype(np.int32), qlen, t.T.astype(np.int32), tlen, w, h0,
+            max_ins, max_del)
+
+
+@pytest.mark.parametrize("with_prev", [False, True])
+def test_extend_batch_matches_jax_package(with_prev):
+    """The port's extend_batch and pack_scal == extend_pallas's
+    (interpret mode) on every ExtendOut field, w_used included."""
+    q, qlen, t, tlen, w, h0, max_ins, max_del = _tasks(6, 2 * BLK, 40, 80)
+    prev = (np.random.default_rng(1).integers(-1, 60, 2 * BLK)
+            .astype(np.int32) if with_prev else None)
+    jp = ExtendParams(mat_flat=jnp.asarray(build_mat(1, 4).astype(
+        np.int32).ravel()), m=5, o_del=6, e_del=1, o_ins=6, e_ins=1,
+        zdrop=100)
+    want = extend_pallas.extend_batch(
+        q, qlen, t, tlen, w, h0, max_ins, max_del, jp,
+        prev_score=None if prev is None else jnp.asarray(prev),
+        blk_b=BLK, interpret=True)
+    got = extend.extend_batch(q, qlen, t, tlen, w, h0, max_ins, max_del,
+                              types.params_from_jax(jp), prev_score=prev,
+                              blk_b=BLK)
+    assert isinstance(got, types.ExtendOut)
+    for f in types.ExtendOut._fields:
+        g = getattr(got, f)
+        assert isinstance(g, np.ndarray), f
+        assert np.array_equal(g, np.asarray(getattr(want, f))), f
+    for a, b in zip(extend.pack_scal(qlen, tlen, w, h0, blk_b=BLK),
+                    extend_pallas.pack_scal(qlen, tlen, w, h0, blk_b=BLK)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)

@@ -2,7 +2,8 @@
 process has JAX loaded through tests/conftest.py) installs an import
 hook that refuses jax/jaxlib, imports every module of the port and
 aligns one single-end chunk through the native host pipeline with the
-port's plain backend on the CPU."""
+port's plain backend on the CPU; a second one runs `mem` SE and PE
+through the Python host and through the four-pass protocol."""
 
 import os
 import subprocess
@@ -12,7 +13,7 @@ import pytest
 
 from bwamem_tpu.pipeline import native_driver
 
-_SCRIPT = r"""
+_NOJAX = r"""
 import importlib.abc
 import sys
 
@@ -25,7 +26,9 @@ class _NoJax(importlib.abc.MetaPathFinder):
 
 
 sys.meta_path.insert(0, _NoJax())
+"""
 
+_SCRIPT = _NOJAX + r"""
 import numpy as np
 import torch
 
@@ -34,7 +37,11 @@ torch.set_num_threads(1)
 import bwamem_tpu_torch.__main__
 import bwamem_tpu_torch.device
 import bwamem_tpu_torch.ops._build
+import bwamem_tpu_torch.ops.extend
 import bwamem_tpu_torch.ops.extend_cuda
+import bwamem_tpu_torch.pipeline.driver
+import bwamem_tpu_torch.pipeline.native_driver
+import bwamem_tpu_torch.pipeline.pair
 from bwamem_tpu.config import MemOptions
 from bwamem_tpu.index.build import build_index
 from bwamem_tpu.index.occ_packed import pack_occ
@@ -69,13 +76,79 @@ print("NOJAX_OK", nrec)
 """
 
 
-@pytest.mark.skipif(not native_driver.available(),
-                    reason="native library unavailable")
-def test_port_runs_with_jax_blocked():
+# `mem` SE and PE (one chunk each) through the Python host and through
+# the four-pass protocol, all on the CPU
+_CLI_SCRIPT = _NOJAX + r"""
+import contextlib
+import io
+import os
+import tempfile
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+
+from bwamem_tpu_torch.__main__ import main
+from bwamem_tpu_torch.ops import extend_cuda
+
+tmp = tempfile.mkdtemp()
+rng = np.random.default_rng(8)
+acgt = np.array(list("ACGT"))
+genome = rng.integers(0, 4, 20000)
+fa = os.path.join(tmp, "ref.fa")
+with open(fa, "w") as f:
+    f.write(">c\n" + "".join(acgt[genome]) + "\n")
+fq = [os.path.join(tmp, f"r{k}.fq") for k in (1, 2)]
+with open(fq[0], "w") as f1, open(fq[1], "w") as f2:
+    for i in range(12):
+        p = int(rng.integers(0, 19500))
+        a = "".join(acgt[genome[p:p + 100]])
+        b = "".join(acgt[3 - genome[p + 250:p + 350][::-1]])
+        f1.write(f"@p{i}\n{a}\n+\n{'I' * 100}\n")
+        f2.write(f"@p{i}\n{b}\n+\n{'I' * 100}\n")
+
+
+def run(argv):
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    assert rc == 0, err.getvalue()[-2000:]
+    return [l for l in out.getvalue().splitlines() if not l.startswith("@")]
+
+
+run(["index", fa])
+for flags in (["--host", "python"], ["--phased"]):
+    for reads in (fq[:1], fq):
+        recs = run(["mem", "--backend", "torch", *flags, fa, *reads])
+        mapped = sum(not int(l.split("\t")[1]) & 4 for l in recs)
+        assert mapped == 12 * len(reads), (flags, reads, mapped)
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+assert not bad, bad
+print("NOJAX_CLI_OK")
+"""
+
+
+def _run_blocked(script, token):
     env = dict(os.environ)
     env["PYTHONPATH"] = (os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))) + os.pathsep + env.get("PYTHONPATH", ""))
-    r = subprocess.run([sys.executable, "-c", _SCRIPT], env=env,
+    r = subprocess.run([sys.executable, "-c", script], env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert "NOJAX_OK" in r.stdout
+    assert token in r.stdout
+
+
+@pytest.mark.skipif(not native_driver.available(),
+                    reason="native library unavailable")
+def test_port_runs_with_jax_blocked():
+    _run_blocked(_SCRIPT, "NOJAX_OK")
+
+
+@pytest.mark.skipif(not native_driver.available(),
+                    reason="native library unavailable")
+def test_python_host_and_phased_run_with_jax_blocked():
+    """The Python host (`--host python`) and the four-pass protocol
+    (`--phased`) reach no JAX: the reference driver's `_run_pass` would
+    import jax.numpy, so the port carries its own."""
+    _run_blocked(_CLI_SCRIPT, "NOJAX_CLI_OK")

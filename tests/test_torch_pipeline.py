@@ -338,18 +338,37 @@ def test_cli_mem_matches_jax_package(tmp_path):
 
 def test_cli_refuses_unported_paths(tmp_path):
     """Flags whose device paths are not ported exit non-zero naming the
-    ROADMAP item; nothing is silently ignored."""
-    from bwamem_tpu_torch.__main__ import build_parser, not_ported
+    ROADMAP item; nothing is silently ignored.  The ported paths are
+    accepted, and the JAX package's backends name their counterparts."""
+    from bwamem_tpu_torch.__main__ import (
+        bad_combination,
+        build_parser,
+        not_ported,
+    )
 
     base = ["mem", "ref.fa", "r.fq"]
     ap = build_parser()
-    assert not_ported(ap.parse_args(base + ["--backend", "torch"])) is None
-    for extra in (["--ship-ref"], ["--device-cigar"], ["--device-rescue"],
-                  ["--device-seed"], ["--backend", "scalar"],
-                  ["--backend", "jax"], ["--backend", "pallas"],
-                  ["--host", "python"]):
+    for extra in (["--backend", "torch"], ["--ship-ref"], ["--phased"],
+                  ["--backend", "scalar"], ["--host", "python"],
+                  ["--host", "python", "--backend", "cuda"]):
+        args = ap.parse_args(base + extra)
+        assert not_ported(args) is None and not bad_combination(args), extra
+    for extra in (["--device-cigar"], ["--device-rescue"],
+                  ["--device-seed"], ["--backend", "jax"],
+                  ["--backend", "pallas"],
+                  ["--host", "python", "--device-cigar"]):
         why = not_ported(ap.parse_args(base + extra))
         assert why and "ROADMAP" in why, extra
+    assert "slice 4" in not_ported(
+        ap.parse_args(base + ["--host", "python", "--device-cigar"]))
+    assert "--backend torch" in not_ported(
+        ap.parse_args(base + ["--backend", "jax"]))
+    assert "--backend cuda" in not_ported(
+        ap.parse_args(base + ["--backend", "pallas"]))
+    for extra in (["--phased", "--ship-ref"], ["--host", "python",
+                                               "--phased"],
+                  ["--backend", "scalar", "--ship-ref"]):
+        assert bad_combination(ap.parse_args(base + extra)), extra
     r = subprocess.run([sys.executable, "-m", "bwamem_tpu_torch", "mem",
                         "--device-rescue", str(tmp_path / "x.fa"),
                         str(tmp_path / "x.fq")], env=_env(),

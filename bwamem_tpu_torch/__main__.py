@@ -7,28 +7,28 @@ NVIDIA GPU.
          [--phased | --ship-ref] ref.fa reads.fq [mates.fq] > out.sam
   python -m bwamem_tpu_torch merge out.sam shard0.sam shard1.sam ...
 
-`index` and `merge` are the JAX package's own (they run no device
-code).  `mem --backend cuda` runs the hand-written kernels on the GPU,
+`index` and `merge` run no device code; the index cache file keeps the
+JAX package's format, so an index built by either package loads in the
+other.  `mem --backend cuda` runs the hand-written kernels on the GPU,
 `--backend torch` their plain PyTorch versions on the CPU, and
 `--backend scalar` the pure host with no batched extension.  The
 native C++ host (the default) drives the resident-reference fused
 extension, or with `--ship-ref` the fused kernel fed from host-filled
 windows, or with `--phased` the four-pass protocol of per-phase
-launches.  `--host python` runs the JAX package's Python host with the
-port's batched extension.  There is no fallback between hosts: the
-native host exits 1 when its C++ library is unavailable.  Options whose
-device paths are not ported yet exit non-zero and name the ROADMAP item
-that ports them.
+launches.  `--host python` runs the Python host (plan, replay and
+pairing in Python) with the port's batched extension.  There is no
+fallback between hosts: the native host exits 1 when its C++ library is
+unavailable.  Options whose device paths are not ported yet exit
+non-zero and name the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
-
-from bwamem_tpu.__main__ import _parse_isize, cmd_index, cmd_merge, load_index
 
 # option (as argparse dest) -> why it is refused; each names its item
 # in ROADMAP.md "Open items"
@@ -68,7 +68,92 @@ def bad_combination(args) -> str | None:
         return ("--phased and --ship-ref select native-host backends; "
                 "the Python host (--host python, --backend scalar) has "
                 "its own")
+    if not (0 <= args.A <= 127 and 0 <= args.B <= 127):
+        # the CUDA kernels keep a row's substitution scores as signed
+        # bytes (extend_cuda.kernel_prm); every backend refuses alike
+        return f"-A {args.A} or -B {args.B} outside 0..127"
     return None
+
+
+def cmd_index(args) -> int:
+    from bwamem_tpu_torch.index.build import build_index
+    from bwamem_tpu_torch.io.fasta import read_fasta
+
+    ref = read_fasta(args.fasta)
+    sys.stderr.write(
+        f"[index] {len(ref.contigs)} contig(s), {ref.l_pac} bp\n")
+    fm = build_index(ref.pac, sa_intv=args.sa_intv)
+    out = args.fasta + ".bwt.npz"
+    # uncompressed: zlib over a GRCh38-scale index costs many minutes
+    # and bwa's own index files are raw; np.load reads either format
+    np.savez(
+        out,
+        l_pac=fm.l_pac, seq_len2=fm.seq_len2, primary=fm.primary,
+        C=fm.C, bwt=fm.bwt, occ_cp=fm.occ_cp, sa_intv=fm.sa_intv,
+        ssa=fm.ssa, pac=fm.pac,
+        names=np.array([c.name for c in ref.contigs]),
+        offsets=np.array([c.offset for c in ref.contigs]),
+        lengths=np.array([c.length for c in ref.contigs]),
+    )
+    sys.stderr.write(f"[index] wrote {out}\n")
+    return 0
+
+
+def load_index(fasta: str):
+    from bwamem_tpu_torch.index.build import FMIndex
+    from bwamem_tpu_torch.io.fasta import Contig, Reference
+
+    path = fasta + ".bwt.npz"
+    if not os.path.exists(path):
+        sys.stderr.write(f"[mem] no index at {path}; run `index` first\n")
+        raise SystemExit(1)
+    z = np.load(path, allow_pickle=False)
+    fm = FMIndex(
+        l_pac=int(z["l_pac"]), seq_len2=int(z["seq_len2"]),
+        primary=int(z["primary"]), C=z["C"], bwt=z["bwt"],
+        occ_cp=z["occ_cp"], sa_intv=int(z["sa_intv"]), ssa=z["ssa"],
+        pac=z["pac"])
+    contigs = [Contig(str(n), int(o), int(l)) for n, o, l in
+               zip(z["names"], z["offsets"], z["lengths"])]
+    return Reference(contigs=contigs, pac=z["pac"]), fm
+
+
+def _parse_isize(spec):
+    """-I FLOAT[,FLOAT[,INT[,INT]]]: mean, std (10% of mean if
+    absent), max (mean+4*std if absent), min of the insert-size
+    distribution (bwa mem -I)."""
+    if not spec:
+        return {}
+    parts = spec.split(",")
+    out = {"pe_mean": float(parts[0])}
+    if len(parts) > 1:
+        out["pe_std"] = float(parts[1])
+    if len(parts) > 2:
+        out["pe_max"] = int(parts[2])
+    if len(parts) > 3:
+        out["pe_min"] = int(parts[3])
+    return out
+
+
+def cmd_merge(args) -> int:
+    import tempfile
+
+    from bwamem_tpu_torch.parallel.multihost import merge_sam_files
+
+    if args.out == "-":
+        with tempfile.NamedTemporaryFile("r", suffix=".sam",
+                                         delete=False) as tf:
+            tmp = tf.name
+        n = merge_sam_files(args.shards, tmp)
+        with open(tmp) as f:
+            for line in f:
+                sys.stdout.write(line)
+        os.unlink(tmp)
+    else:
+        n = merge_sam_files(args.shards, args.out)
+    sys.stderr.write(f"[merge] {n} records from {len(args.shards)} "
+                     f"shard(s)\n")
+    return 0
 
 
 def make_backend(opt, args, pac):
@@ -100,11 +185,11 @@ def make_backend(opt, args, pac):
 def cmd_mem(args) -> int:
     import time
 
-    from bwamem_tpu.config import MemOptions
-    from bwamem_tpu.index.occ_packed import pack_occ
-    from bwamem_tpu.io.fastq import iter_fastq_chunks
-    from bwamem_tpu.io.sam import sam_header
-    from bwamem_tpu.pipeline import native_driver
+    from bwamem_tpu_torch.config import MemOptions
+    from bwamem_tpu_torch.index.occ_packed import pack_occ
+    from bwamem_tpu_torch.io.fastq import iter_fastq_chunks
+    from bwamem_tpu_torch.io.sam import sam_header
+    from bwamem_tpu_torch.pipeline import native_driver
 
     why = not_ported(args) or bad_combination(args)
     if why:
@@ -149,7 +234,7 @@ def cmd_mem(args) -> int:
             sys.stderr.write(f"[mem] bad --shard {args.shard}\n")
             return 1
         if n_shards > 1:
-            from bwamem_tpu.parallel.multihost import (
+            from bwamem_tpu_torch.parallel.multihost import (
                 shard_chunk_stream,
                 shard_pair_stream,
             )
@@ -174,12 +259,12 @@ def cmd_mem(args) -> int:
                 break
     tracer = None
     if args.trace:
-        from bwamem_tpu.utils.metrics import Tracer
+        from bwamem_tpu_torch.utils.metrics import Tracer
 
         tracer = Tracer(args.trace)
     manifest = None
     if args.resume:
-        from bwamem_tpu.utils.checkpoint import Manifest, ReadRange
+        from bwamem_tpu_torch.utils.checkpoint import Manifest, ReadRange
 
         manifest = Manifest(args.resume)
 
@@ -267,7 +352,7 @@ def cmd_mem(args) -> int:
         from collections import deque
         from concurrent.futures import ThreadPoolExecutor
 
-        from bwamem_tpu.pipeline import align as A
+        from bwamem_tpu_torch.pipeline import align as A
         from bwamem_tpu_torch.pipeline.driver import align_batch
 
         def run_chunk(ci, chunk):

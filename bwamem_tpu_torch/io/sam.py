@@ -1,0 +1,87 @@
+"""SAM record model and writer (bwa mem_aln2sam equivalent output layer)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+FLAG_PAIRED = 0x1
+FLAG_PROPER = 0x2
+FLAG_UNMAP = 0x4
+FLAG_MUNMAP = 0x8
+FLAG_REVERSE = 0x10
+FLAG_MREVERSE = 0x20
+FLAG_READ1 = 0x40
+FLAG_READ2 = 0x80
+FLAG_SECONDARY = 0x100
+FLAG_QCFAIL = 0x200
+FLAG_DUP = 0x400
+FLAG_SUPPLEMENTARY = 0x800
+
+
+@dataclasses.dataclass
+class SamRecord:
+    qname: str
+    flag: int
+    rname: str
+    pos: int          # 1-based; 0 = unmapped
+    mapq: int
+    cigar: str
+    rnext: str = "*"
+    pnext: int = 0
+    tlen: int = 0
+    seq: str = "*"
+    qual: str = "*"
+    tags: list[tuple[str, str, object]] = dataclasses.field(
+        default_factory=list)
+
+    def line(self) -> str:
+        fields = [
+            self.qname, str(self.flag), self.rname, str(self.pos),
+            str(self.mapq), self.cigar, self.rnext, str(self.pnext),
+            str(self.tlen), self.seq, self.qual,
+        ]
+        for tag, typ, val in self.tags:
+            fields.append(f"{tag}:{typ}:{val}")
+        return "\t".join(fields)
+
+
+class SamLine:
+    """A pre-rendered SAM line (the native pipeline's C++ emitter,
+    csrc/mempipe.cpp mp_emit_sam).  Duck-compatible with SamRecord for
+    the consumers that matter (`line()`, `flag`); field access parses
+    lazily so the hot path stays one Python object per record."""
+
+    __slots__ = ("_l",)
+
+    def __init__(self, line: str):
+        self._l = line
+
+    def line(self) -> str:
+        return self._l
+
+    @property
+    def flag(self) -> int:
+        return int(self._l.split("\t", 2)[1])
+
+    @property
+    def qname(self) -> str:
+        return self._l.split("\t", 1)[0]
+
+    @property
+    def mapq(self) -> int:
+        return int(self._l.split("\t", 5)[4])
+
+    def __repr__(self) -> str:
+        return f"SamLine({self._l[:60]!r}...)"
+
+
+def sam_header(contigs, extra_lines=(), rg_line: str | None = None,
+               pg_cl: str = "bwamem_tpu") -> str:
+    lines = ["@HD\tVN:1.5\tSO:unsorted\tGO:query"]
+    for c in contigs:
+        lines.append(f"@SQ\tSN:{c.name}\tLN:{c.length}")
+    if rg_line:
+        lines.append(rg_line.replace("\\t", "\t"))
+    lines.extend(extra_lines)
+    lines.append(f"@PG\tID:bwamem_tpu\tPN:bwamem_tpu\tCL:{pg_cl}")
+    return "\n".join(lines) + "\n"

@@ -36,8 +36,8 @@ class KernelLib:
     log: str              # nvcc / ptxas output of the build
 
 
-def _sources(exts=(".cu",)) -> list[str]:
-    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+def _sources(csrc, exts=(".cu",)) -> list[str]:
+    return sorted(os.path.join(csrc, f) for f in os.listdir(csrc)
                   if f.endswith(exts))
 
 
@@ -54,10 +54,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.bwt_extend_fused.restype = i32
     lib.bwt_extend_fused.argtypes = (
         [vp, i32, vp, i32, vp, i32, vp, i32, vp, i64]
-        + [i32] * 7 + [vp, vp, vp, vp])
+        + [i32] * 7 + [vp, vp])
     lib.bwt_extend_t.restype = i32
     lib.bwt_extend_t.argtypes = (
-        [vp, i32, vp, i32, vp, i64] + [i32] * 7 + [vp, vp, vp, vp])
+        [vp, i32, vp, i32, vp, i64] + [i32] * 7 + [vp, vp])
     lib.bwt_error_string.restype = ctypes.c_char_p
     lib.bwt_error_string.argtypes = [i32]
 
@@ -111,25 +111,30 @@ def _compile(srcs, so) -> str:
     return log
 
 
+def build(csrc, build_dir, bind) -> KernelLib:
+    """Compile the *.cu of `csrc` into one library under `build_dir`
+    (unless the library of these very sources is there), load it and
+    give it to `bind` to declare its functions' types."""
+    h = hashlib.sha256()
+    for s in _sources(csrc, (".cu", ".cuh")):
+        with open(s, "rb") as f:
+            h.update(os.path.basename(s).encode() + b"\0" + f.read())
+    os.makedirs(build_dir, exist_ok=True)
+    so = os.path.join(build_dir, f"libbwt_kernels_{h.hexdigest()[:16]}.so")
+    log, secs = "", 0.0
+    if not os.path.exists(so):
+        t0 = time.time()
+        log = _compile(_sources(csrc), so)
+        secs = time.time() - t0
+    lib = ctypes.CDLL(so)
+    bind(lib)
+    return KernelLib(lib, so, secs, log)
+
+
 def load() -> KernelLib:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library of the port, built on first use."""
     global _loaded
     with _lock:
-        if _loaded is not None:
-            return _loaded
-        srcs = _sources()
-        h = hashlib.sha256()
-        for s in _sources((".cu", ".cuh")):
-            with open(s, "rb") as f:
-                h.update(os.path.basename(s).encode() + b"\0" + f.read())
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        so = os.path.join(BUILD_DIR, f"libbwt_kernels_{h.hexdigest()[:16]}.so")
-        log, secs = "", 0.0
-        if not os.path.exists(so):
-            t0 = time.time()
-            log = _compile(srcs, so)
-            secs = time.time() - t0
-        lib = ctypes.CDLL(so)
-        _bind(lib)
-        _loaded = KernelLib(lib, so, secs, log)
+        if _loaded is None:
+            _loaded = build(CSRC, BUILD_DIR, _bind)
         return _loaded

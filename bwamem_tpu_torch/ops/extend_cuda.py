@@ -51,6 +51,17 @@ def _cuda_device(x):
     return dev
 
 
+def kernel_prm(prm) -> list[int]:
+    """[a, b, o_del, e_del, o_ins, e_ins, zdrop] for the kernels, which
+    look a cell's substitution score up in a word of signed bytes: a and
+    b must lie in 0..127."""
+    ints = extend_torch.prm_ints(prm)
+    if not (0 <= ints[0] <= 127 and 0 <= ints[1] <= 127):
+        raise ValueError(f"match score {ints[0]} or mismatch penalty "
+                         f"{ints[1]} outside 0..127")
+    return ints
+
+
 def _launch(name, dev, fn, *args) -> None:
     """Call the C launcher `fn` on dev's current stream; raise if the
     launch failed, count it if not."""
@@ -85,13 +96,10 @@ def extend_batch_raw_fused(ql, tl, qr, tr, scal, tmax2, prm):
     if max(QL, QR) > 1024:
         raise ValueError(f"query window {max(QL, QR)} > 1024")
     out = torch.empty((32, B), dtype=torch.int32, device=dev)
-    eh_h = torch.empty((max(QL, QR) + 2, B), dtype=torch.int32, device=dev)
-    eh_e = torch.empty_like(eh_h)
     _launch("extend_fused", dev, "bwt_extend_fused",
             ql.data_ptr(), QL, tl.data_ptr(), tl.shape[0], qr.data_ptr(),
             QR, tr.data_ptr(), tr.shape[0], scal.data_ptr(), B,
-            *extend_torch.prm_ints(prm), out.data_ptr(), eh_h.data_ptr(),
-            eh_e.data_ptr())
+            *kernel_prm(prm), out.data_ptr())
     return out
 
 
@@ -112,11 +120,8 @@ def extend_batch_raw_t(query_t, target_t, scal_t, tmax, prm):
     if qmax > 1024:
         raise ValueError(f"query window {qmax} > 1024")
     out = torch.empty((8, B), dtype=torch.int32, device=dev)
-    eh_h = torch.empty((qmax + 2, B), dtype=torch.int32, device=dev)
-    eh_e = torch.empty_like(eh_h)
     _launch("extend_t", dev, "bwt_extend_t",
             query_t.data_ptr(), qmax, target_t.data_ptr(),
             target_t.shape[0], scal_t.data_ptr(), B,
-            *extend_torch.prm_ints(prm), out.data_ptr(), eh_h.data_ptr(),
-            eh_e.data_ptr())
+            *kernel_prm(prm), out.data_ptr())
     return out

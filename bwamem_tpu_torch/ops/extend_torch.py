@@ -35,7 +35,8 @@ def prm_ints(prm) -> list[int]:
     return [int(x) for x in np.asarray(prm).ravel()[:7]]
 
 
-def band_pass(target, query, qlen, tlen, aw, h0, prm, inactive=None):
+def band_pass(target, query, qlen, tlen, aw, h0, prm, inactive=None,
+              cells=None):
     """One banded extension pass for every lane.
 
     target (TL, B), query (QM, B): base codes (any integer dtype, > 3
@@ -43,7 +44,9 @@ def band_pass(target, query, qlen, tlen, aw, h0, prm, inactive=None):
     bool) marks lanes this pass skips.  Target row i is read at
     min(i, TL-1), as the Pallas kernel reads it.  Returns (best, max_j,
     max_i, max_ie, gscore, max_off), each (B,) int32, with
-    ksw_extend_core semantics.
+    ksw_extend_core semantics.  `cells` (optional, a one-element list)
+    gains the number of (i, j) cells inside [beg, end) of the rows each
+    lane runs: the work these inputs need, for a roofline bound.
     """
     a, b, o_del, e_del, o_ins, e_ins, zdrop = prm_ints(prm)
     qmax, B = query.shape
@@ -100,6 +103,9 @@ def band_pass(target, query, qlen, tlen, aw, h0, prm, inactive=None):
         endc = torch.minimum(torch.minimum(end, i + aw + 1), qlen)
         h1_first = torch.where(
             begc == 0, (h0 - (o_del + e_del * (i + 1))).clamp_min(0), zero)
+        if cells is not None:
+            cells[0] += int(torch.where(active, (endc - begc).clamp_min(0),
+                                        zero).sum(dtype=torch.int64))
 
         t_row = target[min(i, t_last)][None, :]
         s = torch.where(query_isN | (t_row > 3), s_n,
@@ -167,7 +173,7 @@ def _group(res, aw):
             torch.zeros_like(best)]
 
 
-def extend_fused(ql, tl, qr, tr, scal, tmax2, prm):
+def extend_fused(ql, tl, qr, tr, scal, tmax2, prm, cells=None):
     """The fused whole-alignment extension, plain PyTorch.
 
     ql (QL, B), tl (TL, B), qr (QR, B), tr (TR, B): base codes; scal
@@ -175,37 +181,41 @@ def extend_fused(ql, tl, qr, tr, scal, tmax2, prm):
     [4]=aw1_l [5]=qlen_r [6]=tlen_r [7]=aw0_r [8]=aw1_r [9]=w; tmax2
     (B/blk, 2) per-block row bounds, which only bound loops and so are
     not needed here.  Returns (32, B) int32: [L0 | L1 | R0 | R1] x
-    [score, qle, tle, gtle, gscore, max_off, aw, 0].
+    [score, qle, tle, gtle, gscore, max_off, aw, 0].  `cells` as in
+    band_pass, summed over the four passes.
     """
     del tmax2
     scal = scal.to(torch.int32)
     w = scal[9]
     thr = (w >> 1) + (w >> 2)
-    l0 = band_pass(tl, ql, scal[0], scal[1], scal[2], scal[3], prm)
+    l0 = band_pass(tl, ql, scal[0], scal[1], scal[2], scal[3], prm,
+                   cells=cells)
     conv_l = l0[5] < thr
     l1 = band_pass(tl, ql, scal[0], scal[1], scal[4], scal[3], prm,
-                   inactive=conv_l)
+                   inactive=conv_l, cells=cells)
     # lanes with no left task fall through to h0_seed (best = h0)
     h0_r = torch.where(conv_l, l0[0], l1[0])
-    r0 = band_pass(tr, qr, scal[5], scal[6], scal[7], h0_r, prm)
+    r0 = band_pass(tr, qr, scal[5], scal[6], scal[7], h0_r, prm,
+                   cells=cells)
     conv_r = r0[5] < thr
     r1 = band_pass(tr, qr, scal[5], scal[6], scal[8], h0_r, prm,
-                   inactive=conv_r)
+                   inactive=conv_r, cells=cells)
     rows = (_group(l0, scal[2]) + _group(l1, scal[4])
             + _group(r0, scal[7]) + _group(r1, scal[8]))
     return torch.stack(rows, 0).to(torch.int32)
 
 
-def extend_t(query_t, target_t, scal_t, tmax, prm):
+def extend_t(query_t, target_t, scal_t, tmax, prm, cells=None):
     """One banded pass per lane, plain PyTorch.
 
     query_t (QM, B), target_t (TM, B): base codes; scal_t (8, B) int32
     with rows [qlen, tlen, aw, h0, 0...]; tmax (B/blk,) per-block row
     bounds, which only bound loops and so are not needed here.  Returns
     (8, B) int32: [score, qle, tle, gtle, gscore, max_off, aw, 0].
+    `cells` as in band_pass.
     """
     del tmax
     scal_t = scal_t.to(torch.int32)
     res = band_pass(target_t, query_t, scal_t[0], scal_t[1], scal_t[2],
-                    scal_t[3], prm)
+                    scal_t[3], prm, cells=cells)
     return torch.stack(_group(res, scal_t[2]), 0).to(torch.int32)

@@ -1,0 +1,147 @@
+"""Scale-out across processes: read sharding and ordered output (the
+counterpart of bwamem_tpu/parallel/multihost.py without its
+`init_distributed`; deriving the shard from a process group is the
+multi-GPU slice's work, `--shard K/N` is explicit here).
+
+The index is replicated per process and read batches stream
+data-parallel: a read's whole lifecycle (seeds, chains, extension, mate)
+stays in one process, so the only traffic between processes is the final
+SAM merge.
+
+SAM ordering: each process writes its shard to its own file;
+`merge_sams` interleaves them back into input order (read index =
+shard_id + n_shards * local_index), so the merged output is
+byte-identical to a single-process run.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Sequence
+
+
+def shard_reads(n_reads: int, shard: int, n_shards: int) -> range:
+    """Strided read assignment: shard k gets reads k, k+n, k+2n, ...
+    Striding (vs contiguous blocks) keeps per-shard work balanced when
+    read difficulty drifts along the file."""
+    return range(shard, n_reads, n_shards)
+
+
+def shard_chunk_stream(chunks, shard: int, n_shards: int, b: int):
+    """Filter a chunked read stream down to this shard's strided
+    assignment (shard_reads order: global read index = shard +
+    n_shards * local index) and re-chunk to batches of `b`.  Every
+    shard streams the same file; only 1/n of the reads are decoded
+    into batches, so the skipped reads cost parse time only."""
+    buf = []
+    gi = 0
+    for chunk in chunks:
+        for r in chunk:
+            if gi % n_shards == shard:
+                buf.append(r)
+                if len(buf) == b:
+                    yield buf
+                    buf = []
+            gi += 1
+    if buf:
+        yield buf
+
+
+def shard_pair_stream(pair_iter, shard: int, n_shards: int, b: int):
+    """PE version of shard_chunk_stream: the unit of assignment is the
+    PAIR (a pair's whole lifecycle — pestat, rescue, pairing — stays on
+    one shard)."""
+    buf1, buf2 = [], []
+    gi = 0
+    for chunk, mchunk in pair_iter:
+        for r, m in zip(chunk, mchunk):
+            if gi % n_shards == shard:
+                buf1.append(r)
+                buf2.append(m)
+                if len(buf1) == b:
+                    yield buf1, buf2
+                    buf1, buf2 = [], []
+            gi += 1
+    if buf1:
+        yield buf1, buf2
+
+
+def merge_sams(shard_iters: Sequence[Iterator[list[str]]],
+               ) -> Iterator[list[str]]:
+    """Interleave per-shard record-group streams back into input order.
+
+    shard_iters[k] yields the SAM record groups (one list per read) of
+    shard k in its local order; the merge emits read 0, 1, 2, ... .
+    """
+    iters = [iter(s) for s in shard_iters]
+    n = len(iters)
+    done = [False] * n
+    i = 0
+    while not all(done):
+        k = i % n
+        if not done[k]:
+            try:
+                yield next(iters[k])
+            except StopIteration:
+                done[k] = True
+        i += 1
+        # safety: once every iterator is exhausted in a full cycle, stop
+        if i % n == 0 and all(done):
+            break
+
+
+def _unit_start(flag: int) -> bool:
+    """True when a record opens a new read unit (SE read or PE pair):
+    a PRIMARY record (neither secondary 0x100 nor supplementary 0x800)
+    that is either unpaired or the first-in-pair end (0x40).  The
+    aligner always emits a unit as [read1 primary, its secondaries/
+    supplementaries..., read2 primary, ...], so this boundary is
+    correct even when adjacent units share a QNAME (the case that
+    grouping by QNAME runs merges wrongly)."""
+    return (flag & 0x900) == 0 and ((flag & 0x1) == 0 or bool(flag & 0x40))
+
+
+def sam_units(lines) -> Iterator[list[str]]:
+    """Group an iterable of SAM lines (headers skipped) into read/pair
+    units by flag structure, with a QNAME change as a fallback
+    boundary."""
+    cur: list[str] = []
+    cur_name = None
+    for line in lines:
+        if line.startswith("@"):
+            continue
+        name, flag_s, _ = line.split("\t", 2)
+        if cur and (name != cur_name or _unit_start(int(flag_s))):
+            yield cur
+            cur = []
+        cur.append(line)
+        cur_name = name
+    if cur:
+        yield cur
+
+
+def merge_sam_files(paths: Sequence[str], out_path: str,
+                    header_lines: int | None = None) -> int:
+    """Merge per-shard SAM files (written in shard_reads order) into
+    one input-ordered file; the result is byte-identical to the
+    single-process run's record stream.  Units are delimited by flag
+    structure (sam_units), not QNAME runs, so duplicate or repeated
+    read names cannot glue two units together.  Returns records
+    written."""
+    def groups(path):
+        with open(path) as f:
+            yield from sam_units(f)
+
+    header: list[str] = []
+    with open(paths[0]) as f:
+        for line in f:
+            if line.startswith("@"):
+                header.append(line)
+            else:
+                break
+    n = 0
+    with open(out_path, "w") as out:
+        out.writelines(header)
+        for grp in merge_sams([groups(p) for p in paths]):
+            out.writelines(grp)
+            n += len(grp)
+    return n

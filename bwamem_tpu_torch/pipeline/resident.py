@@ -2,9 +2,9 @@
 bwamem_tpu/pipeline/native_driver.py:741-967).
 
 The two-strand reference text lives on the device once, nibble-packed
-into 32-bit words (8 base codes per word, built by the JAX package's
-numpy `two_strand_text_packed`).  Per chunk the host ships only the
-(16, Bp) lane scalars and the nibble-packed read matrix; the query and
+into 32-bit words (8 base codes per word, built on the host by
+`native_driver.two_strand_text_packed`).  Per chunk the host ships only
+the (16, Bp) lane scalars and the nibble-packed read matrix; the query and
 target windows are gathered on the device and fed to the fused
 extension kernel.  `make_fused_idx_backend` returns the callable that
 `NativePipeline._run_fused` drives unchanged (.fused = .idx = True,
@@ -32,9 +32,9 @@ _MASK32 = 0xFFFFFFFF
 def make_resident_text(pac, device) -> torch.Tensor:
     """The packed two-strand text of `pac` on `device`: a flat int32
     tensor holding the uint32 words bit for bit."""
-    from bwamem_tpu.pipeline.native_driver import two_strand_text_packed
+    from bwamem_tpu_torch.pipeline.native_driver import resident_text_host
 
-    words = two_strand_text_packed(np.asarray(pac))
+    words = resident_text_host(np.asarray(pac))
     return torch.from_numpy(words.view(np.int32)).to(device)
 
 

@@ -7,16 +7,22 @@ Run from the root of the repository on a machine with one NVIDIA GPU:
 
 Phases, each of which fails the run (exit code 1, no result line):
   1. build   the CUDA kernels from bwamem_tpu_torch/csrc with nvcc (one
-             process per source, all at once);
+             process per source, all at once) and, beside them, the
+             one-thread-per-alignment kernels they replaced
+             (tests/_baseline_kernels, loaded by this script only, as the
+             yardstick of the timings);
   2. kernel  the fused extension kernel against its plain PyTorch version
              on the same CUDA tensors (all 32 rows, every lane) at the
-             main path's shapes, its L0 group against the scalar
-             bwa-0.7.8 oracle on 96 lanes, and both timed with CUDA
-             events;
+             main path's shapes and on the hard-case batch of
+             tests/_torch_gate.py, its L0 group against the scalar
+             bwa-0.7.8 oracle on 96 lanes, and kernel, baseline kernel
+             and plain version timed with CUDA events;
   3. kernel_t the per-phase kernel (extend_t) against its plain version
              (all 8 rows, every lane) at (qmax, tmax) = (160, 320) and
-             (1024, 64), fields 0-5 against the scalar oracle on 96
-             lanes, and both timed at bench.py's shape;
+             (1024, 64) and on the hard-case batch in a query window for
+             every group width and strip length of the launch table,
+             fields 0-5 against the scalar oracle on 96 lanes, and the
+             three timed at bench.py's shape;
   4. gather  the resident-reference gathers on the GPU against the same
              gathers on the CPU at their edge cases;
   5. main    `python -m bwamem_tpu_torch index|mem` (in this process) on
@@ -35,13 +41,17 @@ Phases, each of which fails the run (exit code 1, no result line):
              first 4,096 reads and 2,048 pairs: SAM byte-identical to
              the native resident run on the same files.
 Each path's launch counts are set to 0 just before it and read just
-after.  The last line of standard output is {"ok": true, "device":
+after.  Each kernel's bound is the larger of its band cells (counted by
+the plain version on this run's inputs) times INT_OPS_PER_CELL over
+PEAK_INT_OPS and its bytes (inputs read once, outputs written once) over
+PEAK_BYTES.  The last line of standard output is {"ok": true, "device":
 {...}}.
 
-This script imports no JAX.  It reaches the reference package's JAX-free
-host modules only through the port (which reuses its C++ host) and
-through tests/_torch_gate.py, whose scalar oracle is the reference's
-numpy `ksw_extend_core`.
+`python3 chip_smoke.py --kernels-only` stops after phase 3.
+
+This script and everything it loads (the port, tests/_torch_gate.py)
+import neither JAX nor the JAX package; the run fails if either is among
+the loaded modules at its end.
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -70,7 +81,15 @@ GATE_B = 8192
 GATE_DIMS = (160, 320, 160, 320)   # the main path's (QL, TL, QR, TR)
 WIDE_DIMS = (1024, 64, 1024, 64)   # the widest query window
 T_GATE_DIMS = ((160, 320), (1024, 64))   # extend_t (qmax, tmax)
+T_HARD_QMAX = (24, 33, 104, 160, 180, 250, 300, 1024)  # one per launch shape
 PRM = np.array([1, 4, 6, 1, 6, 1, 100, 0], np.int32)  # bwa -Ma, zdrop on
+# The roofline of the pass on an H100 SXM.  A cell of the recurrence costs
+# about 18 integer operations (score select 3, M 2, two maxima for H,
+# the row maximum with its column 3, E 4, F 4); the card does 64 int32
+# operations per SM and clock: 132 SMs x 64 x 1.98 GHz.
+INT_OPS_PER_CELL = 18
+PEAK_INT_OPS = 132 * 64 * 1.98e9
+PEAK_BYTES = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -98,7 +117,92 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def phase_kernel(dev):
+def ptxas_summary(log_text):
+    """`nvcc -Xptxas -v` output as one entry per kernel: its name (with
+    the <group, strip> template arguments), registers, and spill bytes
+    where there are any."""
+    out, name = [], "?"
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = re.sub(r"^_Z\w*?\d+(extend_\w+?_kernel)(?:ILi(\d+)ELi"
+                          r"(\d+)EE)?.*", r"\1<\2,\3>", m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and (int(m.group(1)) or int(m.group(2))):
+            out.append(f"{name} SPILLS {m.group(1)}+{m.group(2)} B")
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append(f"{name} {m.group(1)} regs")
+    return "; ".join(out)
+
+
+def bind_baseline(lib):
+    """Argument types of the baseline kernels' launchers: the port's,
+    with the two global (qmax + 2, B) H/E scratch rows before the
+    stream."""
+    import ctypes
+
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.bwt_extend_fused.restype = i32
+    lib.bwt_extend_fused.argtypes = (
+        [vp, i32, vp, i32, vp, i32, vp, i32, vp, i64]
+        + [i32] * 7 + [vp, vp, vp, vp])
+    lib.bwt_extend_t.restype = i32
+    lib.bwt_extend_t.argtypes = (
+        [vp, i32, vp, i32, vp, i64] + [i32] * 7 + [vp, vp, vp, vp])
+
+
+def baseline_call(lib, fn, windows, scal, out_rows, prm):
+    """Launch baseline kernel `fn` on the (rows, B) int8 `windows` and
+    `scal`; returns its (out_rows, B) result."""
+    import torch
+
+    from bwamem_tpu_torch.ops.extend_torch import prm_ints
+
+    B = scal.shape[1]
+    qmax = max(w.shape[0] for w in windows[::2])
+    out = torch.empty((out_rows, B), dtype=torch.int32, device=scal.device)
+    eh_h = torch.empty((qmax + 2, B), dtype=torch.int32, device=scal.device)
+    eh_e = torch.empty_like(eh_h)
+    dims = [x for w in windows for x in (w.data_ptr(), w.shape[0])]
+    rc = getattr(lib, fn)(*dims, scal.data_ptr(), B, *prm_ints(prm),
+                          out.data_ptr(), eh_h.data_ptr(), eh_e.data_ptr(),
+                          torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        fail(f"baseline {fn} launch failed: {rc}")
+    return out
+
+
+def time_kernel(name, kernel, baseline, plain, cells, tensors, n_out):
+    """Times of `kernel`, the baseline kernel and the plain version
+    (baseline, kernel, kernel, baseline in turns) and the bound of the
+    work: `cells` band cells, `tensors` read once, n_out int32 written."""
+    if not bool((kernel() == baseline()).all()):
+        fail(f"{name}: baseline kernel != kernel on the timed batch")
+    p1, k1 = cuda_ms(baseline, 10), cuda_ms(kernel, 20)
+    k2, p2 = cuda_ms(kernel, 20), cuda_ms(baseline, 10)
+    plain_ms = cuda_ms(plain, 2)
+    ms, parent_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    n_bytes = sum(x.numel() * x.element_size() for x in tensors) + 4 * n_out
+    ops_ms = 1e3 * cells * INT_OPS_PER_CELL / PEAK_INT_OPS
+    bytes_ms = 1e3 * n_bytes / PEAK_BYTES
+    bound_ms = max(ops_ms, bytes_ms)
+    log(f"{name}: kernel {k1:.3f}, {k2:.3f} ms; baseline kernel (one "
+        f"thread per alignment, global H/E scratch) {p1:.3f}, {p2:.3f} ms; "
+        f"plain PyTorch {plain_ms:.3f} ms (CUDA events); {cells} band "
+        f"cells -> {cells / ms / 1e6:.3f} Gcell/s; bound {bound_ms:.4f} ms "
+        f"(operations {ops_ms:.4f} ms at {INT_OPS_PER_CELL} int32 a cell "
+        f"over {PEAK_INT_OPS / 1e12:.2f} TOP/s, bytes {bytes_ms:.4f} ms for "
+        f"{n_bytes} B) = {100 * bound_ms / ms:.1f}% of the kernel's time "
+        f"(baseline {100 * bound_ms / parent_ms:.1f}%)")
+    return {"max_abs_err": 0, "ms": ms, "parent_ms": parent_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None, "cells": cells}
+
+
+def phase_kernel(dev, base):
     import torch
 
     import _torch_gate as gate
@@ -131,12 +235,30 @@ def phase_kernel(dev):
             f"passes, {int((s[0] == 0).sum())} lanes without a left "
             f"task); L0 == ksw_extend_core on 96 lanes")
         if dims == GATE_DIMS:
-            ms = cuda_ms(lambda: extend_cuda.extend_batch_raw_fused(
-                *t, prm), 10)
-            plain_ms = cuda_ms(lambda: extend_torch.extend_fused(*t, prm), 2)
-            log(f"time at B={GATE_B} {dims}: kernel {ms:.3f} ms, plain "
-                f"PyTorch {plain_ms:.3f} ms (CUDA events)")
-            result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            cells = [0]
+            extend_torch.extend_fused(*t, prm, cells=cells)
+            result = time_kernel(
+                f"extend_fused at B={GATE_B} {dims}",
+                lambda: extend_cuda.extend_batch_raw_fused(*t, prm),
+                lambda: baseline_call(base, "bwt_extend_fused", t[:4], t[4],
+                                      32, prm),
+                lambda: extend_torch.extend_fused(*t, prm), cells[0], t[:5],
+                32 * GATE_B)
+    for qmax in GATE_DIMS[0], WIDE_DIMS[0]:
+        batch = gate.hard_fused_batch(11, qmax)
+        t = [torch.from_numpy(x).to(dev) for x in batch]
+        for zdrop in (100, 0):
+            prm = PRM.copy()
+            prm[6] = zdrop
+            got = extend_cuda.extend_batch_raw_fused(*t, prm)
+            torch.cuda.synchronize()
+            want = extend_torch.extend_fused(*t, prm)
+            if not torch.equal(got, want):
+                bad = (got != want).nonzero()[:5].tolist()
+                fail(f"kernel != plain on the hard cases at qmax {qmax}, "
+                     f"zdrop {zdrop}: first (row, lane) {bad}")
+        log(f"kernel == plain on all 32 rows x {batch[4].shape[1]} lanes of "
+            f"the hard-case batch at qmax {qmax} (zdrop 100 and 0)")
     return result
 
 
@@ -145,8 +267,7 @@ def bench_t_batch():
     lanes, qlen 100 in a 104 window, tlen 200 in a 256 window (the
     target is the query with 6 substitutions and a random tail), w 100,
     h0 19.  Returns the (qmax, B) / (tmax, B) int8 windows, the (8, B)
-    scalars, the row bounds and the band-cell count B * 200 * min(100,
-    2 * 100 + 1)."""
+    scalars and the row bounds."""
     from bwamem_tpu_torch.ops.extend import pack_scal
 
     B, QMAX, TMAX, QLEN, TLEN, W = 16384, 104, 256, 100, 200, 100
@@ -160,11 +281,10 @@ def bench_t_batch():
                            np.full(B, W), np.full(B, 19), blk_b=128)
     return (np.ascontiguousarray(query.T, np.int8),
             np.ascontiguousarray(target.T, np.int8),
-            np.ascontiguousarray(scal.T), tmax,
-            B * TLEN * min(QLEN, 2 * W + 1))
+            np.ascontiguousarray(scal.T), tmax)
 
 
-def phase_kernel_t(dev):
+def phase_kernel_t(dev, base):
     import torch
 
     import _torch_gate as gate
@@ -192,24 +312,49 @@ def phase_kernel_t(dev):
             f"{int((scal[0] == 0).sum())} lanes without a task); fields "
             f"0-5 == ksw_extend_core on 96 lanes")
 
-    q, t, scal, bounds, cells = bench_t_batch()
+    for qmax in T_HARD_QMAX:
+        q, t, scal, bounds = gate.hard_t_batch(5, qmax)
+        args = [torch.from_numpy(x).to(dev) for x in (q, t, scal)]
+        for zdrop in (100, 0):
+            prm = PRM.copy()
+            prm[6] = zdrop
+            got = extend_cuda.extend_batch_raw_t(*args, bounds, prm)
+            torch.cuda.synchronize()
+            want = extend_torch.extend_t(*args, bounds, prm)
+            if not torch.equal(got, want):
+                bad = (got != want).nonzero()[:5].tolist()
+                fail(f"extend_t kernel != plain on the hard cases at qmax "
+                     f"{qmax}, zdrop {zdrop}: first (row, lane) {bad}")
+        lanes = gate.valid_l0_lanes(scal)[:96]
+        bad = gate.l0_scalar_mismatches(got.cpu().numpy(), q, t, scal, prm,
+                                        lanes)
+        if bad:
+            fail(f"extend_t != ksw_extend_core on the hard cases at qmax "
+                 f"{qmax}: {bad[:3]}")
+        log(f"extend_t kernel == plain on all 8 rows x {scal.shape[1]} lanes "
+            f"of the hard-case batch at qmax {qmax} (zdrop 100 and 0); "
+            f"fields 0-5 == ksw_extend_core on {len(lanes)} lanes")
+
+    q, t, scal, bounds = bench_t_batch()
     prm = PRM.copy()
     prm[6] = 0  # bench.py's zdrop
     args = [torch.from_numpy(x).to(dev) for x in (q, t, scal)]
     got = extend_cuda.extend_batch_raw_t(*args, bounds, prm)
     torch.cuda.synchronize()
-    if not torch.equal(got, extend_torch.extend_t(*args, bounds, prm)):
+    cells = [0]
+    if not torch.equal(got, extend_torch.extend_t(*args, bounds, prm,
+                                                  cells=cells)):
         fail("extend_t kernel != plain at bench.py's shape")
-    ms = cuda_ms(lambda: extend_cuda.extend_batch_raw_t(*args, bounds, prm),
-                 10)
-    plain_ms = cuda_ms(lambda: extend_torch.extend_t(*args, bounds, prm), 2)
-    log(f"extend_t time at bench.py's shape (B=16384, qmax 104, tmax 256, "
-        f"qlen 100, tlen 200, w 100, zdrop 0): kernel {ms:.3f} ms, plain "
-        f"PyTorch {plain_ms:.3f} ms (CUDA events); {cells} band cells -> "
-        f"kernel {cells / ms / 1e6:.3f}, plain {cells / plain_ms / 1e6:.3f} "
-        f"Gcell/s (lanes stop at row_max == 0, unlike bench.py's "
-        f"early_exit=False: not comparable with any bench.py figure)")
-    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms}
+    return time_kernel(
+        "extend_t at bench.py's shape (B=16384, qmax 104, tmax 256, qlen "
+        "100, tlen 200, w 100, zdrop 0; lanes stop at row_max == 0, unlike "
+        "bench.py's early_exit=False: not comparable with any bench.py "
+        "figure)",
+        lambda: extend_cuda.extend_batch_raw_t(*args, bounds, prm),
+        lambda: baseline_call(base, "bwt_extend_t", args[:2], args[2], 8,
+                              prm),
+        lambda: extend_torch.extend_t(*args, bounds, prm), cells[0], args,
+        8 * scal.shape[1])
 
 
 def phase_gather(dev):
@@ -253,9 +398,9 @@ def phase_gather(dev):
         "off==0, hi/lo split, negative starts, tail pad; nibble reads)")
 
 
-def simulate(tmp):
-    """Genome FASTA, SE FASTQ and PE FASTQ pair, read names carrying the
-    true leftmost position(s)."""
+def simulate(tmp, n_se=N_SE, n_pe=N_PE):
+    """Genome FASTA, SE FASTQ of n_se reads and PE FASTQ pair of n_pe
+    pairs, read names carrying the true leftmost position(s)."""
     rng = np.random.default_rng(0)
     acgt = np.frombuffer(b"ACGT", np.uint8)
     genome = rng.integers(0, 4, GENOME_BP).astype(np.uint8)
@@ -278,7 +423,7 @@ def simulate(tmp):
             for nm, r in zip(names, acgt[R]):
                 f.write(f"@{nm}\n{r.tobytes().decode()}\n+\n{qual}\n")
 
-    pos = rng.integers(0, GENOME_BP - 600, N_SE)
+    pos = rng.integers(0, GENOME_BP - 600, n_se)
     R = mutate(genome[pos[:, None] + span].astype(np.int64))
     R[1::2] = 3 - R[1::2, ::-1]               # half on the reverse strand
     se = os.path.join(tmp, "se.fq")
@@ -286,8 +431,8 @@ def simulate(tmp):
 
     # FR library: left end forward, right end reverse-complemented;
     # alternate which end is read 1
-    pos = rng.integers(0, GENOME_BP - 600, N_PE)
-    isize = rng.normal(350, 30, N_PE).astype(np.int64)
+    pos = rng.integers(0, GENOME_BP - 600, n_pe)
+    isize = rng.normal(350, 30, n_pe).astype(np.int64)
     L = mutate(genome[pos[:, None] + span].astype(np.int64))
     M = mutate(genome[(pos + isize - READ_LEN)[:, None] + span]
                .astype(np.int64))
@@ -527,13 +672,27 @@ def main() -> int:
 
     from bwamem_tpu_torch.ops import _build
 
+    # both builds at once: every nvcc process starts together
+    built = {}
+    side = threading.Thread(target=lambda: built.update(base=_build.build(
+        os.path.join(root, "tests", "_baseline_kernels"),
+        os.path.join(_build.BUILD_DIR, "baseline"), bind_baseline)))
+    side.start()
     kl = _build.load()
-    regs = [l.strip() for l in kl.log.splitlines() if "registers" in l]
-    log(f"CUDA kernels built in {kl.build_seconds:.1f}s -> "
-        f"{os.path.relpath(kl.path, root)}; ptxas: {regs}")
+    side.join()
+    if "base" not in built:
+        fail("the baseline kernels did not build")
+    for what, lib in (("CUDA kernels", kl), ("baseline kernels",
+                                             built["base"])):
+        log(f"{what} built in {lib.build_seconds:.1f}s -> "
+            f"{os.path.relpath(lib.path, root)}; ptxas: "
+            f"{ptxas_summary(lib.log)}")
 
-    timing = phase_kernel(dev)
-    timing_t = phase_kernel_t(dev)
+    timing = phase_kernel(dev, built["base"].lib)
+    timing_t = phase_kernel_t(dev, built["base"].lib)
+    if "--kernels-only" in sys.argv[1:]:
+        print(json.dumps({"kernels": [timing, timing_t]}), flush=True)
+        return 0
     phase_gather(dev)
     tmp = tempfile.mkdtemp(prefix="bwamem_smoke_")
     try:
@@ -564,6 +723,10 @@ def main() -> int:
          "source": "bwamem_tpu_torch/csrc/extend_t.cu",
          "replaces": "bwamem_tpu/ops/extend_pallas.py:255",
          "launches": launches_t, **timing_t}]}), flush=True)
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "bwamem_tpu"))
+    if loaded:
+        fail(f"JAX or the JAX package was loaded: {loaded[:5]}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

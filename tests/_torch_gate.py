@@ -1,14 +1,17 @@
 """Correctness gate inputs for the extension kernels: seeded random
-batches that reach every branch of the fused and the per-phase kernel,
-and the check of one pass's fields against the scalar bwa-0.7.8 oracle.  Shared by the tests of the port
-and chip_smoke.py (which puts this directory on sys.path)."""
+batches that reach every branch of the fused and the per-phase kernel, a
+batch of hard cases built for the cooperating-threads pass (strip edges,
+long gaps, ties, trims), and the check of one pass's fields against the
+scalar bwa-0.7.8 oracle (the port's own numpy `ksw_extend_core`).
+Shared by the tests of the port and chip_smoke.py (which puts this
+directory on sys.path); imports numpy and the port only."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from bwamem_tpu.config import build_mat
-from bwamem_tpu.ops.extend_ref import ksw_extend_core
+from bwamem_tpu_torch.config import build_mat
+from bwamem_tpu_torch.ops.extend_ref import ksw_extend_core
 from bwamem_tpu_torch.ops.extend_torch import prm_ints
 
 
@@ -106,6 +109,131 @@ def random_t_batch(seed, B, qmax, tmax, *, n_pad=0, blk_l=512):
     return q, t, scal, _row_bounds(scal[0], scal[1], blk_l)
 
 
+HARD_QLENS = (1, 31, 32, 33, 100, 150, 1023, 1024)
+HARD_AWS = (1, 2, 100)
+
+
+def _hard_cases(rng, qmax, tmax):
+    """The hard cases as (query, target, tlen, aw, h0) tuples: 1-D code
+    arrays with len(query) <= qmax and len(target) <= tmax; tlen may
+    exceed len(target) (rows past the window re-read its last row)."""
+    cases = []
+
+    def rand(n):
+        return rng.integers(0, 4, n).astype(np.int8)
+
+    def fit(t):
+        return t[:tmax]
+
+    for qlen in (n for n in HARD_QLENS if n <= qmax):
+        for aw in HARD_AWS:
+            q = rand(qlen)
+            # the query itself, then a random tail
+            cases.append((q, fit(np.concatenate([q, rand(40)])), None, aw,
+                          int(rng.integers(1, 80))))
+            # three substitutions and an N on each side
+            t = np.concatenate([q, rand(24)])
+            for k in rng.integers(0, qlen, 3):
+                t[k] = (t[k] + 1) & 3
+            t[rng.integers(0, len(t))] = 4
+            qn = q.copy()
+            qn[rng.integers(0, qlen)] = 4
+            cases.append((qn, fit(t), None, aw, int(rng.integers(20, 60))))
+            if qlen < 100:
+                continue
+            for gap in (7, 23, 41):
+                cut = int(rng.integers(20, qlen - gap - 20))
+                # long insertion: the query holds `gap` bases the target
+                # lacks, so F runs along the row across several strips
+                t = np.concatenate([q[:cut], q[cut + gap:], rand(16)])
+                cases.append((q, fit(t), None, aw, 90))
+                # long deletion: the target holds `gap` bases more, so E
+                # runs down the column across as many rows
+                t = np.concatenate([q[:cut], rand(gap), q[cut:], rand(16)])
+                cases.append((q, fit(t), None, aw, 90))
+    # row-maximum ties that sweep across every strip edge: a query of
+    # period p against itself, where the diagonal shifted by p starts
+    # oe_ins + p - 1 + a lower and the main diagonal loses exactly that
+    # to m substitutions among its first p columns (a + b = 5 each):
+    # from row p on, columns i and i + p tie, and the larger wins
+    for p_, m in ((4, 2), (9, 3), (14, 4)):
+        for qlen in (n for n in (33, 100, 150, 1024) if n <= qmax):
+            unit = np.resize(np.arange(4, dtype=np.int8), p_)
+            unit[p_ - 1] = (unit[0] + 2) & 3    # no shorter period
+            t = np.resize(unit, min(qlen + 20, tmax))
+            q = np.resize(unit, qlen)
+            q[:m] = (q[:m] + 1) & 3
+            cases.append((q, t, None, 100, 50))
+    for qlen in (n for n in (100, 150, 1024) if n <= qmax):
+        # Z-drop stop: a narrow band cannot follow the vertical gap, so
+        # after the matching prefix the diagonal falls b per row
+        q = rand(qlen)
+        t = fit(np.concatenate([q[:qlen // 2], rand(tmax)]))
+        cases.append((q, t, None, 2, 40))
+        cases.append((q, t, None, 100, 40))
+        # tlen beyond the target window: rows past it re-read its last
+        # row while the band [i - aw, qlen) is still open
+        t = fit(np.concatenate([q, rand(tmax)]))
+        cases.append((q, t, tmax + 24, 100, 60))
+        # all N on one side
+        cases.append((np.full(qlen, 4, np.int8), t, None, 100, 30))
+        cases.append((q, np.full(len(t), 4, np.int8), None, 100, 30))
+    q = rand(min(150, qmax))
+    t = fit(np.concatenate([q, rand(30)]))
+    cases.append((q[:0], t, None, 100, 30))        # empty query
+    cases.append((q, t, 0, 100, 30))               # empty target
+    cases.append((q, t, None, 100, 0))             # h0 = 0
+    return cases
+
+
+def hard_t_batch(seed, qmax, tmax=None, *, blk_l=128):
+    """The hard cases as a per-phase batch (query_t, target_t, scal_t,
+    bounds), numpy, in a query window of qmax columns (cases longer than
+    it are left out) and a target window of tmax rows (qmax + 64 if not
+    given); the lane count is padded to a multiple of blk_l with empty
+    lanes.  The cases: qlen in HARD_QLENS x aw in HARD_AWS, each as an
+    exact copy and with substitutions and N codes; long insertions and
+    deletions; row-maximum ties on both sides of every strip edge; a
+    Z-drop stop; tlen beyond the target window; all-N windows; empty
+    and h0 = 0 lanes."""
+    tmax = tmax or qmax + 64
+    cases = _hard_cases(np.random.default_rng(seed), qmax, tmax)
+    B = -(-len(cases) // blk_l) * blk_l
+    q = np.zeros((qmax, B), np.int8)
+    t = np.zeros((tmax, B), np.int8)
+    scal = np.zeros((8, B), np.int32)
+    for i, (qc, tc, tlen, aw, h0) in enumerate(cases):
+        q[:len(qc), i] = qc
+        t[:len(tc), i] = tc
+        t[len(tc):, i] = tc[-1] if len(tc) else 0
+        scal[:4, i] = (len(qc), len(tc) if tlen is None else tlen, aw, h0)
+    return q, t, scal, _row_bounds(scal[0], scal[1], blk_l)
+
+
+def hard_fused_batch(seed, qmax, tmax=None, *, blk_l=128):
+    """The hard cases as a fused batch (ql, tl, qr, tr, scal, tmax2):
+    the left side is hard_t_batch(seed), the right side the same cases
+    from another seed in reversed lane order, so every case meets an
+    unrelated one and is seeded with its left score; w is the case's
+    band, so the long gaps take the retry at twice the band."""
+    ql, tl, sl, _ = hard_t_batch(seed, qmax, tmax, blk_l=blk_l)
+    qr, tr, sr, _ = hard_t_batch(seed + 1, qmax, tmax, blk_l=blk_l)
+    n = int((sl[3] > 0).sum() + 2)           # the cases, without padding
+    rev = np.arange(ql.shape[1])
+    rev[:n] = rev[:n][::-1]
+    qr, tr, sr = qr[:, rev], tr[:, rev], sr[:, rev]
+    scal = np.zeros((16, ql.shape[1]), np.int32)
+    scal[0], scal[1], scal[2], scal[3] = sl[0], sl[1], sl[2], sl[3]
+    scal[4] = sl[2] << 1
+    scal[5], scal[6], scal[7] = sr[0], sr[1], sr[2]
+    scal[8] = sr[2] << 1
+    scal[9] = np.maximum(sl[2], sr[2])
+    tmax2 = np.stack([_row_bounds(scal[0], scal[1], blk_l),
+                      _row_bounds(scal[5], scal[6], blk_l)], 1)
+    return (ql, tl, np.ascontiguousarray(qr), np.ascontiguousarray(tr),
+            scal, tmax2)
+
+
 def valid_l0_lanes(scal) -> np.ndarray:
     """Lanes whose first task (the fused L0, or the per-phase pass: both
     read qlen, tlen and h0 from scal rows 0, 1 and 3) the scalar oracle
@@ -119,16 +247,18 @@ def l0_scalar_mismatches(out, ql, tl, scal, prm, lanes) -> list:
     bwamem_tpu.ops.extend_ref.ksw_extend_core on `lanes`: the L0 group
     of a fused (32, B) result with its ql, tl and (16, B) scal, or an
     extend_t (8, B) result with its query, target and (8, B) scal
-    (numpy inputs; valid lanes, codes 0..4).  Returns the mismatching
+    (numpy inputs; valid lanes, codes 0..4; target rows past the window
+    re-read its last row, as the kernels do).  Returns the mismatching
     (lane, got, want) triples."""
     a, b, o_del, e_del, o_ins, e_ins, zdrop = prm_ints(prm)
     mat = build_mat(a, b)
     bad = []
     for i in lanes:
         i = int(i)
+        rows = np.minimum(np.arange(scal[1, i]), tl.shape[0] - 1)
         want = ksw_extend_core(
             ql[:scal[0, i], i].astype(np.int64),
-            tl[:scal[1, i], i].astype(np.int64), mat, o_del, e_del,
+            tl[rows, i].astype(np.int64), mat, o_del, e_del,
             o_ins, e_ins, w=int(scal[2, i]), h0=int(scal[3, i]),
             zdrop=zdrop)
         got = tuple(int(out[f, i]) for f in range(6))

@@ -100,3 +100,17 @@ def test_cli_new_paths_match_jax_package(files, port_flags, jax_flags):
         assert len(recs) >= (48 if mates else 24)
         assert all(l.endswith("\tRG:Z:x") for l in recs)
         assert got == want
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda", "scalar"])
+@pytest.mark.parametrize("flag", [("-A", "128"), ("-B", "128"),
+                                  ("-A", "-1")])
+def test_cli_refuses_scores_outside_a_signed_byte(files, backend, flag):
+    """-A / -B that the CUDA kernels cannot hold are refused when the
+    arguments are read, alike on every backend."""
+    args, _, _ = files
+    err = io.StringIO()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(err):
+        rc = main(["mem", "--backend", backend, *flag, *args])
+    assert rc == 2 and "outside 0..127" in err.getvalue()

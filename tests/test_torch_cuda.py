@@ -71,13 +71,12 @@ def test_extend_t_kernel_matches_plain(cuda, qmax, tmax, zdrop):
 def test_backend_cuda_matches_cpu(cuda):
     """The resident-reference backend on the GPU == on the CPU, SAM
     byte for byte, through the native host pipeline."""
-    from bwamem_tpu.config import MemOptions
-    from bwamem_tpu.index.build import build_index
-    from bwamem_tpu.index.occ_packed import pack_occ
-    from bwamem_tpu.io.fasta import Contig, Reference
-    from bwamem_tpu.pipeline import native_driver
+    from bwamem_tpu_torch.config import MemOptions
+    from bwamem_tpu_torch.index.build import build_index
+    from bwamem_tpu_torch.index.occ_packed import pack_occ
+    from bwamem_tpu_torch.io.fasta import Contig, Reference
     from bwamem_tpu_torch.ops.types import params_from_options
-    from bwamem_tpu_torch.pipeline import resident
+    from bwamem_tpu_torch.pipeline import native_driver, resident
 
     rng = np.random.default_rng(1)
     pac = rng.integers(0, 4, 60000).astype(np.uint8)

@@ -142,6 +142,15 @@ def test_cuda_path_refuses_non_cuda_devices():
         extend_cuda.extend_batch_raw_t(*meta, _prm())
 
 
+def test_kernel_prm_refuses_scores_outside_a_signed_byte():
+    """The kernels keep a row's substitution scores as signed bytes."""
+    assert extend_cuda.kernel_prm(_prm(a=127, b=127)) == [127, 127, 6, 1, 6,
+                                                          1, 100]
+    for bad in (_prm(a=128), _prm(b=128), _prm(a=-1)):
+        with pytest.raises(ValueError):
+            extend_cuda.kernel_prm(bad)
+
+
 def _pallas_t(batch, prm):
     q, t, scal, tmax = batch
     return np.asarray(extend_pallas.extend_batch_raw_t(
@@ -236,3 +245,68 @@ def test_extend_batch_matches_jax_package(with_prev):
     for a, b in zip(extend.pack_scal(qlen, tlen, w, h0, blk_b=BLK),
                     extend_pallas.pack_scal(qlen, tlen, w, h0, blk_b=BLK)):
         assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def _oracle_mismatches(out, q, t, scal, prm):
+    """Fields 0-5 of `out` against the JAX package's ksw_extend_core on
+    every lane it can run (qlen, tlen, h0 > 0 in scal rows 0, 1, 3; band
+    in row 2); target rows past the window re-read its last row."""
+    a, b, o_del, e_del, o_ins, e_ins, zdrop = (int(x) for x in prm[:7])
+    mat = build_mat(a, b)
+    bad = []
+    lanes = gate.valid_l0_lanes(scal)
+    for i in lanes:
+        rows = np.minimum(np.arange(scal[1, i]), t.shape[0] - 1)
+        want = ksw_extend_core(q[:scal[0, i], i].astype(np.int64),
+                               t[rows, i].astype(np.int64), mat, o_del,
+                               e_del, o_ins, e_ins, w=int(scal[2, i]),
+                               h0=int(scal[3, i]), zdrop=zdrop)
+        got = tuple(int(out[f, i]) for f in range(6))
+        if got != (want.score, want.qle, want.tle, want.gtle, want.gscore,
+                   want.max_off):
+            bad.append((int(i), got, want))
+    return len(lanes), bad
+
+
+@pytest.mark.parametrize("qmax,zdrop", [(33, 100), (33, 0), (160, 100),
+                                        (160, 0), (300, 100), (300, 0),
+                                        (1024, 100)])
+def test_extend_t_hard_cases_match_pallas_and_oracle(qmax, zdrop):
+    """The hard-case batch (strip edges, long gaps, ties, trims, Z-drop,
+    tlen past the window, N, empty lanes): plain extend_t ==
+    _extend_kernel_t in interpret mode on all 8 rows of every lane, and
+    == the JAX package's ksw_extend_core on every lane it can run."""
+    batch = gate.hard_t_batch(5, qmax, blk_l=BLK)
+    q, t, scal, _ = batch
+    assert {n for n in gate.HARD_QLENS if n <= qmax} <= set(scal[0].tolist())
+    assert set(gate.HARD_AWS) <= set(scal[2].tolist())
+    assert (scal[1] > t.shape[0]).any() or qmax < 100   # tlen > tmax
+    prm = _prm(zdrop=zdrop)
+    got = _plain_t(batch, prm)
+    want = _pallas_t(batch, prm)
+    bad = np.argwhere(got != want)
+    assert bad.size == 0, (bad[:8], got[tuple(bad[0])], want[tuple(bad[0])])
+    n, bad = _oracle_mismatches(got, q, t, scal, prm)
+    assert n >= 27 and bad == [], bad[:3]
+    if zdrop == 0 and qmax >= 100:      # the Z-drop stop is in the batch
+        assert (got != _plain_t(batch, _prm(zdrop=100))).any()
+
+
+@pytest.mark.parametrize("qmax,zdrop", [(33, 100), (160, 100), (160, 0),
+                                        (300, 100), (1024, 100)])
+def test_fused_hard_cases_match_pallas_and_oracle(qmax, zdrop):
+    """The hard cases as a fused batch (every case seeded with the left
+    score of an unrelated one, the long gaps through the retry): plain
+    extend_fused == _extend_kernel_fused in interpret mode on all 32
+    rows of every lane, and its L0 group == the JAX package's
+    ksw_extend_core."""
+    batch = gate.hard_fused_batch(11, qmax, blk_l=BLK)
+    prm = _prm(zdrop=zdrop)
+    got = _plain(batch, prm)
+    want = _pallas(batch, prm)
+    bad = np.argwhere(got != want)
+    assert bad.size == 0, (bad[:8], got[tuple(bad[0])], want[tuple(bad[0])])
+    n_retry_l, _, n_retry_r = _retry_counts(want, batch[4])
+    assert qmax < 100 or (n_retry_l > 0 and n_retry_r > 0)
+    n, bad = _oracle_mismatches(got, batch[0], batch[1], batch[4], prm)
+    assert n >= 27 and bad == [], bad[:3]

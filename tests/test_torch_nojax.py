@@ -1,9 +1,10 @@
-"""The port runs with `import jax` blocked: a subprocess (this test
-process has JAX loaded through tests/conftest.py) installs an import
-hook that refuses jax/jaxlib, imports every module of the port and
-aligns one single-end chunk through the native host pipeline with the
-port's plain backend on the CPU; a second one runs `mem` SE and PE
-through the Python host and through the four-pass protocol."""
+"""The port runs with `import jax` and the JAX package blocked: a
+subprocess (this test process has JAX loaded through tests/conftest.py)
+installs an import hook that refuses jax, jaxlib and bwamem_tpu, imports
+every module of the port and aligns one single-end chunk through the
+native host pipeline with the port's plain backend on the CPU; a second
+one runs `mem` SE and PE through the Python host and through the
+four-pass protocol."""
 
 import os
 import subprocess
@@ -11,22 +12,9 @@ import sys
 
 import pytest
 
-from bwamem_tpu.pipeline import native_driver
+from bwamem_tpu_torch.pipeline import native_driver
 
-_NOJAX = r"""
-import importlib.abc
-import sys
-
-
-class _NoJax(importlib.abc.MetaPathFinder):
-    def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError(f"blocked: {name}")
-        return None
-
-
-sys.meta_path.insert(0, _NoJax())
-"""
+from test_torch_selfcontained import BLOCK_IMPORTS as _NOJAX
 
 _SCRIPT = _NOJAX + r"""
 import numpy as np
@@ -34,21 +22,22 @@ import torch
 
 torch.set_num_threads(1)
 
-import bwamem_tpu_torch.__main__
-import bwamem_tpu_torch.device
-import bwamem_tpu_torch.ops._build
-import bwamem_tpu_torch.ops.extend
-import bwamem_tpu_torch.ops.extend_cuda
-import bwamem_tpu_torch.pipeline.driver
-import bwamem_tpu_torch.pipeline.native_driver
-import bwamem_tpu_torch.pipeline.pair
-from bwamem_tpu.config import MemOptions
-from bwamem_tpu.index.build import build_index
-from bwamem_tpu.index.occ_packed import pack_occ
-from bwamem_tpu.io.fasta import Contig, Reference
-from bwamem_tpu.pipeline import native_driver
+import importlib
+import pkgutil
+
+import bwamem_tpu_torch
+
+n_mod = 0
+for m in pkgutil.walk_packages(bwamem_tpu_torch.__path__, "bwamem_tpu_torch."):
+    importlib.import_module(m.name)     # every module of the port
+    n_mod += 1
+assert n_mod > 30, n_mod
+from bwamem_tpu_torch.config import MemOptions
+from bwamem_tpu_torch.index.build import build_index
+from bwamem_tpu_torch.index.occ_packed import pack_occ
+from bwamem_tpu_torch.io.fasta import Contig, Reference
 from bwamem_tpu_torch.ops.types import params_from_options
-from bwamem_tpu_torch.pipeline import resident
+from bwamem_tpu_torch.pipeline import native_driver, resident
 
 rng = np.random.default_rng(3)
 pac = rng.integers(0, 4, 20000).astype(np.uint8)
@@ -70,8 +59,7 @@ assert nrec >= 16 and fn.dispatches == 1, (nrec, fn.dispatches)
 mapped = sum(1 for l in text.splitlines()
              if not int(l.split("\t")[1]) & 4)
 assert mapped >= 16, mapped
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
-assert not bad, bad
+assert_none_loaded()
 print("NOJAX_OK", nrec)
 """
 
@@ -123,8 +111,7 @@ for flags in (["--host", "python"], ["--phased"]):
         recs = run(["mem", "--backend", "torch", *flags, fa, *reads])
         mapped = sum(not int(l.split("\t")[1]) & 4 for l in recs)
         assert mapped == 12 * len(reads), (flags, reads, mapped)
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
-assert not bad, bad
+assert_none_loaded()
 print("NOJAX_CLI_OK")
 """
 
@@ -149,6 +136,6 @@ def test_port_runs_with_jax_blocked():
                     reason="native library unavailable")
 def test_python_host_and_phased_run_with_jax_blocked():
     """The Python host (`--host python`) and the four-pass protocol
-    (`--phased`) reach no JAX: the reference driver's `_run_pass` would
-    import jax.numpy, so the port carries its own."""
+    (`--phased`) reach neither JAX nor the JAX package: the port
+    carries its own drivers."""
     _run_blocked(_CLI_SCRIPT, "NOJAX_CLI_OK")

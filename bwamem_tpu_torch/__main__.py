@@ -4,7 +4,8 @@ NVIDIA GPU.
   python -m bwamem_tpu_torch index ref.fa
   python -m bwamem_tpu_torch mem [-t N] [-b BATCH] [--inflight N] \
          [--backend cuda|torch|scalar] [--host auto|native|python] \
-         [--phased | --ship-ref] ref.fa reads.fq [mates.fq] > out.sam
+         [--phased | --ship-ref] [--device-rescue] [--device-cigar] \
+         ref.fa reads.fq [mates.fq] > out.sam
   python -m bwamem_tpu_torch merge out.sam shard0.sam shard1.sam ...
 
 `index` and `merge` run no device code; the index cache file keeps the
@@ -16,10 +17,14 @@ native C++ host (the default) drives the resident-reference fused
 extension, or with `--ship-ref` the fused kernel fed from host-filled
 windows, or with `--phased` the four-pass protocol of per-phase
 launches.  `--host python` runs the Python host (plan, replay and
-pairing in Python) with the port's batched extension.  There is no
-fallback between hosts: the native host exits 1 when its C++ library is
-unavailable.  Options whose device paths are not ported yet exit
-non-zero and name the ROADMAP item that ports them.
+pairing in Python) with the port's batched extension.
+`--device-rescue` runs the mate-rescue local alignments of the native PE
+path on the device, `--device-cigar` the banded global realignments that
+give the CIGARs (native host, SE and PE; Python host, SE): from the
+device-resident reference, or with `--ship-ref` from windows the host
+ships.  There is no fallback between hosts: the native host exits 1 when
+its C++ library is unavailable.  Options whose device paths are not
+ported yet exit non-zero and name the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -33,9 +38,7 @@ import numpy as np
 # option (as argparse dest) -> why it is refused; each names its item
 # in ROADMAP.md "Open items"
 _NOT_PORTED = {
-    "device_cigar": "--device-cigar is ROADMAP Queue 1 item 8 (slice 4)",
-    "device_rescue": "--device-rescue is ROADMAP Queue 1 item 7 (slice 3)",
-    "device_seed": "--device-seed is ROADMAP Queue 1 item 10 (slice 6)",
+    "device_seed": "--device-seed is ROADMAP Queue 1 item 10",
 }
 # the JAX package's device backends -> the port's counterparts
 _BACKEND_COUNTERPART = {"jax": "torch", "pallas": "cuda"}
@@ -156,30 +159,60 @@ def cmd_merge(args) -> int:
     return 0
 
 
-def make_backend(opt, args, pac):
-    """The extension backend that `args` selects, on the GPU (`cuda`) or
-    the CPU (`torch`): for the Python host an extend_batch_fn (None for
-    `scalar`); for the native host the callable NativePipeline drives
-    (per-phase with --phased, host-shipped fused with --ship-ref, else
-    resident-reference fused)."""
+def make_backends(opt, args, pac, paired):
+    """(extension, rescue, CIGAR) backends that `args` selects, on the GPU
+    (`cuda`) or the CPU (`torch`).  Extension: for the Python host an
+    extend_batch_fn (None for `scalar`); for the native host the callable
+    NativePipeline drives (per-phase with --phased, host-shipped fused
+    with --ship-ref, else resident-reference fused).  Rescue
+    (--device-rescue, native PE) and CIGAR (--device-cigar, native host)
+    are None where the host does that work; with --ship-ref they take
+    windows from the host, else they gather them from the one resident
+    text that every idx backend shares."""
     from bwamem_tpu_torch.device import resolve
     from bwamem_tpu_torch.ops.types import params_from_options
 
     if args.backend == "scalar":
-        return None
+        return None, None, None
     device = resolve("cuda" if args.backend == "cuda" else "cpu")
     params = params_from_options(opt)
     if python_host(args):
         from bwamem_tpu_torch.ops import extend
 
-        return extend.make_raw_backend(params, device)
+        return extend.make_raw_backend(params, device), None, None
     from bwamem_tpu_torch.pipeline import native_driver, resident
 
+    want_rescue = args.device_rescue and paired
+    # one resident two-strand text shared by every idx backend
+    text_dev = None
+    if not args.ship_ref and (not args.phased or args.device_cigar
+                              or want_rescue):
+        text_dev = resident.make_resident_text(pac, device)
     if args.phased:
-        return native_driver.make_raw_t_backend(params, device)
-    if args.ship_ref:
-        return native_driver.make_fused_backend(params, device)
-    return resident.make_fused_idx_backend(params, pac, device)
+        ext_fn = native_driver.make_raw_t_backend(params, device)
+    elif args.ship_ref:
+        ext_fn = native_driver.make_fused_backend(params, device)
+    else:
+        ext_fn = resident.make_fused_idx_backend(params, pac, device,
+                                                 text_dev=text_dev)
+    rescue_fn = cigar_fn = None
+    if args.device_cigar:
+        if args.ship_ref:
+            from bwamem_tpu_torch.ops.global_torch import make_cigar_backend
+
+            cigar_fn = make_cigar_backend(device)
+        else:  # resident-reference rounds: meta-only H2D
+            cigar_fn = resident.make_cigar_idx_backend(
+                pac, device, text_dev=text_dev)
+    if want_rescue:
+        if args.ship_ref:
+            from bwamem_tpu_torch.ops.local_torch import make_rescue_backend
+
+            rescue_fn = make_rescue_backend(device)
+        else:  # resident-reference waves: meta-only H2D
+            rescue_fn = resident.make_rescue_idx_backend(
+                pac, device, text_dev=text_dev)
+    return ext_fn, rescue_fn, cigar_fn
 
 
 def cmd_mem(args) -> int:
@@ -211,8 +244,21 @@ def cmd_mem(args) -> int:
                      skip_pairing=args.P,
                      **_parse_isize(args.I))
     ref, fm = load_index(args.fasta)
+    paired = bool(args.mates or args.p)
+    # what the JAX package's CLI says where a flag has no effect
+    if args.device_cigar and args.backend != "scalar" and paired \
+            and on_python:
+        sys.stderr.write("[mem] --device-cigar for PE needs the native "
+                         "host; ignored here\n")
+    if args.device_cigar and args.backend == "scalar":
+        sys.stderr.write("[mem] --device-cigar needs a device backend; "
+                         "ignored here\n")
+    if args.device_rescue and (not paired or on_python):
+        sys.stderr.write("[mem] --device-rescue applies to the native PE "
+                         "path; ignored here\n")
     try:
-        ext_fn = make_backend(opt, args, ref.pac)
+        ext_fn, rescue_fn, cigar_fn = make_backends(opt, args, ref.pac,
+                                                    paired)
     except RuntimeError as e:  # e.g. --backend cuda without a GPU
         sys.stderr.write(f"[mem] {e}\n")
         return 1
@@ -328,13 +374,15 @@ def cmd_mem(args) -> int:
             elif not args.C:
                 # zero-object fast path: one pre-terminated text blob
                 text, nr_ = pipes[0].align_pairs_chunk_text(
-                    seqs1, seqs2, ext_fn, **kw)
+                    seqs1, seqs2, ext_fn, rescue_fn=rescue_fn,
+                    cigar_fn=cigar_fn, **kw)
                 out.write(text)
                 n_rec += nr_
                 recs = []
             else:
-                recs = pipes[0].align_pairs_chunk(seqs1, seqs2, ext_fn,
-                                                  **kw)
+                recs = pipes[0].align_pairs_chunk(
+                    seqs1, seqs2, ext_fn, rescue_fn=rescue_fn,
+                    cigar_fn=cigar_fn, **kw)
             for gi, rr_ in enumerate(recs):
                 cms = ((chunk[gi].comment, mchunk[gi].comment) if args.C
                        else None)
@@ -355,6 +403,9 @@ def cmd_mem(args) -> int:
         from bwamem_tpu_torch.pipeline import align as A
         from bwamem_tpu_torch.pipeline.driver import align_batch
 
+        # the Python host's device CIGAR runs where its extension runs
+        cigar_device = "cuda" if args.backend == "cuda" else "cpu"
+
         def run_chunk(ci, chunk):
             """The chunk's SAM as (text, records) from the native fast
             path, else as per-read record lists."""
@@ -365,11 +416,14 @@ def cmd_mem(args) -> int:
                 return [A.align_read(opt, ref, fm, r.name, sq, r.qual)
                         for r, sq in zip(chunk, seqs)]
             if on_python:
-                return align_batch(opt, ref, fm, seqs, ext_fn, po=po, **kw)
+                return align_batch(opt, ref, fm, seqs, ext_fn, po=po,
+                                   device_cigar=args.device_cigar,
+                                   device=cigar_device, **kw)
             pipe_ = pipes[ci % len(pipes)]
             if not args.C:
-                return pipe_.align_chunk_text(seqs, ext_fn, **kw)
-            return pipe_.align_chunk(seqs, ext_fn, **kw)
+                return pipe_.align_chunk_text(seqs, ext_fn,
+                                              cigar_fn=cigar_fn, **kw)
+            return pipe_.align_chunk(seqs, ext_fn, cigar_fn=cigar_fn, **kw)
 
         reads_done = 0
 
@@ -530,9 +584,12 @@ def build_parser() -> argparse.ArgumentParser:
                      help="dispatch each fused chunk as two shape "
                           "buckets (a second device call)")
     mem.add_argument("--device-cigar", action="store_true",
-                     help="CIGAR realignment on device (not ported)")
+                     help="run the banded global realignments that give "
+                          "the CIGARs on the device (native host: SE and "
+                          "PE; Python host: SE)")
     mem.add_argument("--device-rescue", action="store_true",
-                     help="mate-rescue local SW on device (not ported)")
+                     help="run the mate-rescue local alignments of the "
+                          "native PE path on the device")
     mem.add_argument("--device-seed", action="store_true",
                      help="SMEM seeding on device (not ported)")
     mem.add_argument("--shard", default=None, metavar="K/N",

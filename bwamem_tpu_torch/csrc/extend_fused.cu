@@ -7,6 +7,10 @@
 // under the same rule.  Output (32, B) int32 = [L0 | L1 | R0 | R1] x
 // [score, qle, tle, gtle, gscore, max_off, aw, 0], bit-identical to the
 // Pallas kernel and to the plain PyTorch version (ops/extend_torch.py).
+// The Pallas call's compute_dtype=jnp.int16 is bwt_extend_fused_i16: the
+// same kernel with int16_t cells, two query columns a register under the
+// packed DPX instructions (band_pass.cuh), equal to the 32-bit result
+// inside the range that ops/extend_cuda.check_i16_range states.
 //
 // Design: a group of cooperating threads per alignment runs the four
 // passes in turn, each the shared pass of band_pass.cuh (strips of query
@@ -37,17 +41,18 @@ static __device__ __forceinline__ unsigned prmt_b32(unsigned x, unsigned y,
 
 namespace {
 
-template <int G, int C>
+template <int G, int C, class Cell>
 __global__ void __launch_bounds__(kThreads) extend_fused_kernel(
     const int8_t* __restrict__ ql, int QL, const int8_t* __restrict__ tl,
     int TL, const int8_t* __restrict__ qr, int QR,
     const int8_t* __restrict__ tr, int TR, const int32_t* __restrict__ scal,
     int64_t B, Prm p, int* __restrict__ out, int ncol) {
   extern __shared__ __align__(16) unsigned char smem[];
-  extend_fused_body<G, C>(ql, QL, tl, TL, qr, QR, tr, TR, scal, B, p, out,
-                          ncol, smem);
+  extend_fused_body<G, C, Cell>(ql, QL, tl, TL, qr, QR, tr, TR, scal, B, p,
+                                out, ncol, smem);
 }
 
+template <class Cell>
 struct LaunchFused {
   const int8_t *ql, *tl, *qr, *tr;
   int QL, TL, QR, TR;
@@ -59,15 +64,33 @@ struct LaunchFused {
 
   template <int G, int C>
   int run() const {
+    constexpr int kC = strip_columns<C, Cell>();
     unsigned blocks;
     int ncol;
     size_t smem;
-    launch_shape<G, C>(B, QL > QR ? QL : QR, &blocks, &ncol, &smem);
-    extend_fused_kernel<G, C><<<blocks, kThreads, smem, stream>>>(
+    launch_shape<G, kC, Cell>(B, QL > QR ? QL : QR, &blocks, &ncol, &smem);
+    extend_fused_kernel<G, kC, Cell><<<blocks, kThreads, smem, stream>>>(
         ql, QL, tl, TL, qr, QR, tr, TR, scal, B, p, out, ncol);
     return (int)cudaGetLastError();
   }
 };
+
+template <class Cell>
+int launch_fused(const void* ql, int QL, const void* tl, int TL,
+                 const void* qr, int QR, const void* tr, int TR,
+                 const void* scal, long long B, const Prm& p, void* out,
+                 void* stream) {
+  if (B <= 0) return 0;
+  const LaunchFused<Cell> l{static_cast<const int8_t*>(ql),
+                            static_cast<const int8_t*>(tl),
+                            static_cast<const int8_t*>(qr),
+                            static_cast<const int8_t*>(tr),
+                            QL, TL, QR, TR,
+                            static_cast<const int32_t*>(scal), (int64_t)B, p,
+                            static_cast<int*>(out),
+                            static_cast<cudaStream_t>(stream)};
+  return dispatch_shape(QL > QR ? QL : QR, l);
+}
 
 }  // namespace
 
@@ -81,17 +104,20 @@ int bwt_extend_fused(const void* ql, int QL, const void* tl, int TL,
                      const void* scal, long long B, int a, int b, int o_del,
                      int e_del, int o_ins, int e_ins, int zdrop, void* out,
                      void* stream) {
-  if (B <= 0) return 0;
-  const LaunchFused l{static_cast<const int8_t*>(ql),
-                      static_cast<const int8_t*>(tl),
-                      static_cast<const int8_t*>(qr),
-                      static_cast<const int8_t*>(tr),
-                      QL, TL, QR, TR,
-                      static_cast<const int32_t*>(scal), (int64_t)B,
-                      Prm{a, b, o_del, e_del, o_ins, e_ins, zdrop},
-                      static_cast<int*>(out),
-                      static_cast<cudaStream_t>(stream)};
-  return dispatch_shape(QL > QR ? QL : QR, l);
+  return launch_fused<int32_t>(ql, QL, tl, TL, qr, QR, tr, TR, scal, B,
+                               Prm{a, b, o_del, e_del, o_ins, e_ins, zdrop},
+                               out, stream);
+}
+
+// The same with 16-bit cells: same arguments, same (32, B) int32 output.
+int bwt_extend_fused_i16(const void* ql, int QL, const void* tl, int TL,
+                         const void* qr, int QR, const void* tr, int TR,
+                         const void* scal, long long B, int a, int b,
+                         int o_del, int e_del, int o_ins, int e_ins,
+                         int zdrop, void* out, void* stream) {
+  return launch_fused<int16_t>(ql, QL, tl, TL, qr, QR, tr, TR, scal, B,
+                               Prm{a, b, o_del, e_del, o_ins, e_ins, zdrop},
+                               out, stream);
 }
 
 const char* bwt_error_string(int code) {

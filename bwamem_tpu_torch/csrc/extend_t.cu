@@ -7,7 +7,11 @@
 // and the Python host's batched driver call.  Input scal (8, B) int32 =
 // [qlen, tlen, aw, h0, 0...]; output (8, B) int32 = [score, qle, tle,
 // gtle, gscore, max_off, aw, 0], bit-identical to the Pallas kernel and
-// to the plain PyTorch version (ops/extend_torch.extend_t).
+// to the plain PyTorch version (ops/extend_torch.extend_t).  The Pallas
+// call's compute_dtype=jnp.int16 is bwt_extend_t_i16: the same kernel with
+// int16_t cells, two query columns a register under the packed DPX
+// instructions (band_pass.cuh), equal to the 32-bit result inside the
+// range that ops/extend_cuda.check_i16_range states.
 //
 // Design: a group of cooperating threads per alignment runs the shared
 // pass of band_pass.cuh (strips of query columns per thread, the H/E row
@@ -40,16 +44,17 @@ static __device__ __forceinline__ unsigned prmt_b32(unsigned x, unsigned y,
 
 namespace {
 
-template <int G, int C>
+template <int G, int C, class Cell>
 __global__ void __launch_bounds__(kThreads)
     extend_t_kernel(const int8_t* __restrict__ q, int qmax,
                     const int8_t* __restrict__ t, int tmax,
                     const int32_t* __restrict__ scal, int64_t B, Prm p,
                     int* __restrict__ out, int ncol) {
   extern __shared__ __align__(16) unsigned char smem[];
-  extend_t_body<G, C>(q, qmax, t, tmax, scal, B, p, out, ncol, smem);
+  extend_t_body<G, C, Cell>(q, qmax, t, tmax, scal, B, p, out, ncol, smem);
 }
 
+template <class Cell>
 struct LaunchT {
   const int8_t* q;
   int qmax;
@@ -63,15 +68,29 @@ struct LaunchT {
 
   template <int G, int C>
   int run() const {
+    constexpr int kC = strip_columns<C, Cell>();
     unsigned blocks;
     int ncol;
     size_t smem;
-    launch_shape<G, C>(B, qmax, &blocks, &ncol, &smem);
-    extend_t_kernel<G, C><<<blocks, kThreads, smem, stream>>>(
+    launch_shape<G, kC, Cell>(B, qmax, &blocks, &ncol, &smem);
+    extend_t_kernel<G, kC, Cell><<<blocks, kThreads, smem, stream>>>(
         q, qmax, t, tmax, scal, B, p, out, ncol);
     return (int)cudaGetLastError();
   }
 };
+
+template <class Cell>
+int launch_t(const void* q, int qmax, const void* t, int tmax,
+             const void* scal, long long B, const Prm& p, void* out,
+             void* stream) {
+  if (B <= 0) return 0;
+  const LaunchT<Cell> l{static_cast<const int8_t*>(q), qmax,
+                        static_cast<const int8_t*>(t), tmax,
+                        static_cast<const int32_t*>(scal), (int64_t)B, p,
+                        static_cast<int*>(out),
+                        static_cast<cudaStream_t>(stream)};
+  return dispatch_shape(qmax, l);
+}
 
 }  // namespace
 
@@ -84,13 +103,19 @@ int bwt_extend_t(const void* q, int qmax, const void* t, int tmax,
                  const void* scal, long long B, int a, int b, int o_del,
                  int e_del, int o_ins, int e_ins, int zdrop, void* out,
                  void* stream) {
-  if (B <= 0) return 0;
-  const LaunchT l{static_cast<const int8_t*>(q), qmax,
-                  static_cast<const int8_t*>(t), tmax,
-                  static_cast<const int32_t*>(scal), (int64_t)B,
-                  Prm{a, b, o_del, e_del, o_ins, e_ins, zdrop},
-                  static_cast<int*>(out), static_cast<cudaStream_t>(stream)};
-  return dispatch_shape(qmax, l);
+  return launch_t<int32_t>(q, qmax, t, tmax, scal, B,
+                           Prm{a, b, o_del, e_del, o_ins, e_ins, zdrop}, out,
+                           stream);
+}
+
+// The same with 16-bit cells: same arguments, same (8, B) int32 output.
+int bwt_extend_t_i16(const void* q, int qmax, const void* t, int tmax,
+                     const void* scal, long long B, int a, int b, int o_del,
+                     int e_del, int o_ins, int e_ins, int zdrop, void* out,
+                     void* stream) {
+  return launch_t<int16_t>(q, qmax, t, tmax, scal, B,
+                           Prm{a, b, o_del, e_del, o_ins, e_ins, zdrop}, out,
+                           stream);
 }
 
 }  // extern "C"

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -17,3 +18,9 @@ def resolve(name) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def to_device(x, dtype, device) -> torch.Tensor:
+    """The array `x` as a contiguous tensor of numpy type `dtype` on
+    `device` (one host-to-device copy when that is a GPU)."""
+    return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(device)

@@ -51,13 +51,13 @@ def _nvcc() -> str:
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.bwt_extend_fused.restype = i32
-    lib.bwt_extend_fused.argtypes = (
-        [vp, i32, vp, i32, vp, i32, vp, i32, vp, i64]
-        + [i32] * 7 + [vp, vp])
-    lib.bwt_extend_t.restype = i32
-    lib.bwt_extend_t.argtypes = (
-        [vp, i32, vp, i32, vp, i64] + [i32] * 7 + [vp, vp])
+    for fn in (lib.bwt_extend_fused, lib.bwt_extend_fused_i16):
+        fn.restype = i32
+        fn.argtypes = ([vp, i32, vp, i32, vp, i32, vp, i32, vp, i64]
+                       + [i32] * 7 + [vp, vp])
+    for fn in (lib.bwt_extend_t, lib.bwt_extend_t_i16):
+        fn.restype = i32
+        fn.argtypes = [vp, i32, vp, i32, vp, i64] + [i32] * 7 + [vp, vp]
     lib.bwt_error_string.restype = ctypes.c_char_p
     lib.bwt_error_string.argtypes = [i32]
 

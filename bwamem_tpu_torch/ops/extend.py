@@ -35,11 +35,14 @@ def pack_scal(qlen, tlen, aw, h0, blk_b: int = 128):
     return scal, tmax
 
 
-def _run(query, qlen, target, tlen, aw, h0, prm, blk_b, device) -> ExtendOut:
+def _run(query, qlen, target, tlen, aw, h0, prm, blk_b, device,
+         compute_dtype=torch.int32) -> ExtendOut:
     """Pack row-major (B, qmax) / (B, tmax) tasks, run one pass on
     `device` and unpack the (8, B) result."""
     scal, tmax = pack_scal(np.asarray(qlen), np.asarray(tlen),
                            np.asarray(aw), np.asarray(h0), blk_b=blk_b)
+    if compute_dtype == torch.int16:
+        extend_cuda.check_i16_lanes(prm, scal.T, np.asarray(query).shape[1])
 
     def dev_t(x, dt):
         return torch.from_numpy(np.ascontiguousarray(
@@ -47,7 +50,7 @@ def _run(query, qlen, target, tlen, aw, h0, prm, blk_b, device) -> ExtendOut:
 
     out = extend_cuda.extend_batch_raw_t(
         dev_t(query, np.int8), dev_t(target, np.int8), dev_t(scal, np.int32),
-        tmax, prm).cpu().numpy()
+        tmax, prm, compute_dtype=compute_dtype).cpu().numpy()
     return ExtendOut(score=out[0], qle=out[1], tle=out[2], gtle=out[3],
                      gscore=out[4], max_off=out[5], w_used=out[6])
 
@@ -88,17 +91,22 @@ def extend_batch(query, qlen, target, tlen, w, h0, max_ins, max_del,
     return out
 
 
-def make_raw_backend(params, device, blk_l: int = 512):
+def make_raw_backend(params, device, blk_l: int = 512, *,
+                     compute_dtype=torch.int32):
     """The Python host's extend_batch_fn on `device` (a torch.device):
     backend(query, qlen, target, tlen, aw, h0) -> ExtendOut of numpy,
     one `extend_t` launch per call on a CUDA device.  The host packs the
     scalars, transposes the row-major int32 tasks and narrows them to
     int8 (codes 0-4) before the H2D copy; the result comes back to the
-    host.  Calls need len(qlen) % blk_l == 0."""
+    host.  Calls need len(qlen) % blk_l == 0.  compute_dtype=torch.int16
+    runs the 16-bit cells (extend_cuda.check_i16_range; every lane
+    needs h0 + a*qmax < 2^14 and aw < 2^14, checked on the host block:
+    ValueError outside them)."""
     prm = params_vector(params)
     device = torch.device(device)
 
     def backend(query, qlen, target, tlen, aw, h0):
-        return _run(query, qlen, target, tlen, aw, h0, prm, blk_l, device)
+        return _run(query, qlen, target, tlen, aw, h0, prm, blk_l, device,
+                    compute_dtype)
 
     return backend

@@ -16,6 +16,15 @@ padding lanes and lanes that did not retry included: an invalid or
 inactive lane (qlen, tlen or h0 <= 0, or a retry lane that
 converged) gives best = h0, qle = tle = gtle = 0, gscore = -1,
 max_off = 0 and the pass's aw.
+
+Every function takes `compute_dtype`, as the Pallas entry points do:
+torch.int32 (the default), or torch.int16 for 16-bit H/E/F cells with
+-/+2^14 as the sentinels, which is `_band_pass` at `dt == jnp.int16`
+operation for operation (only the row-maximum key H*1024 + j is
+widened to int32).  The 16-bit results equal the 32-bit ones while no
+intermediate leaves the 16-bit range; extend_cuda.check_i16_range
+states that range.  The 16-bit version is the specification of the
+16-bit kernels.
 """
 
 from __future__ import annotations
@@ -25,6 +34,8 @@ import torch
 
 NEG = -(1 << 29)
 BIG = 1 << 29
+NEG16 = -(1 << 14)
+BIG16 = 1 << 14
 
 
 def prm_ints(prm) -> list[int]:
@@ -35,8 +46,13 @@ def prm_ints(prm) -> list[int]:
     return [int(x) for x in np.asarray(prm).ravel()[:7]]
 
 
+def _wrap16(v: int) -> int:
+    """v as a 16-bit two's-complement value (what .astype(int16) makes)."""
+    return ((v + (1 << 15)) & 0xFFFF) - (1 << 15)
+
+
 def band_pass(target, query, qlen, tlen, aw, h0, prm, inactive=None,
-              cells=None):
+              cells=None, compute_dtype=torch.int32):
     """One banded extension pass for every lane.
 
     target (TL, B), query (QM, B): base codes (any integer dtype, > 3
@@ -47,30 +63,43 @@ def band_pass(target, query, qlen, tlen, aw, h0, prm, inactive=None,
     ksw_extend_core semantics.  `cells` (optional, a one-element list)
     gains the number of (i, j) cells inside [beg, end) of the rows each
     lane runs: the work these inputs need, for a roofline bound.
+    `compute_dtype` is the type of the cells and of everything else but
+    the row-maximum key (int32): torch.int32 or torch.int16.
     """
-    a, b, o_del, e_del, o_ins, e_ins, zdrop = prm_ints(prm)
+    prm = prm_ints(prm)
     qmax, B = query.shape
     if qmax > 1024:
         raise ValueError(f"qmax {qmax} > 1024 (argmax key H*1024 + j)")
     dev = query.device
-    i32 = torch.int32
+    dt = compute_dtype
+    if dt == torch.int16:
+        # the scalars wrap as the casts of the Pallas body wrap them
+        prm = [_wrap16(x) for x in prm]
+        neg_v, big_v = NEG16, BIG16
+    elif dt == torch.int32:
+        neg_v, big_v = NEG, BIG
+    else:
+        raise ValueError(f"compute_dtype {dt}: want torch.int32 or int16")
+    a, b, o_del, e_del, o_ins, e_ins, zdrop = prm
 
     def c(v):
-        return torch.tensor(v, dtype=i32, device=dev)
+        return torch.tensor(v, dtype=dt, device=dev)
 
-    zero, neg, big = c(0), c(NEG), c(BIG)
+    zero, neg, big = c(0), c(neg_v), c(big_v)
     s_match, s_mis, s_n = c(a), c(-b), c(-1)
-    query = query.to(i32)
-    target = target.to(i32)
-    qlen, tlen, aw, h0 = (x.to(i32) for x in (qlen, tlen, aw, h0))
-    oe_del = o_del + e_del
-    oe_ins = o_ins + e_ins
+    query = query.to(dt)
+    target = target.to(dt)
+    qlen, tlen, aw, h0 = (x.to(dt) for x in (qlen, tlen, aw, h0))
+    oe_del = c(o_del) + c(e_del)
+    oe_ins = c(o_ins) + c(e_ins)
+    o_del, e_del, e_ins = c(o_del), c(e_del), c(e_ins)
 
-    sidx = torch.arange(qmax, dtype=i32, device=dev)[:, None]
+    sidx32 = torch.arange(qmax, dtype=torch.int32, device=dev)[:, None]
+    sidx = sidx32.to(dt)
     query_isN = query > 3
     ej_oe = e_ins * sidx - oe_ins
     ejm1 = e_ins * (sidx - 1)
-    neg_row = torch.full((1, B), NEG, dtype=i32, device=dev)
+    neg_row = torch.full((1, B), neg_v, dtype=dt, device=dev)
 
     eh_h = torch.where(
         sidx == 0, h0,
@@ -82,14 +111,14 @@ def band_pass(target, query, qlen, tlen, aw, h0, prm, inactive=None,
     if inactive is not None:
         valid = valid & ~inactive
     done = ~valid
-    beg = torch.zeros(B, dtype=i32, device=dev)
+    beg = torch.zeros(B, dtype=dt, device=dev)
     end = qlen.clone()
     best = h0.clone()
-    max_i = torch.full((B,), -1, dtype=i32, device=dev)
+    max_i = torch.full((B,), -1, dtype=dt, device=dev)
     max_j = max_i.clone()
     max_ie = max_i.clone()
     gscore = max_i.clone()
-    max_off = torch.zeros(B, dtype=i32, device=dev)
+    max_off = torch.zeros(B, dtype=dt, device=dev)
 
     n_rows = int(torch.where(valid, tlen, zero).max())
     t_last = target.shape[0] - 1
@@ -118,10 +147,11 @@ def band_pass(target, query, qlen, tlen, aw, h0, prm, inactive=None,
         H = torch.where(in_band, torch.maximum(torch.maximum(M, eh_e), F),
                         zero)
 
-        # row max and its argmax in one reduction (ties -> larger j)
-        kmax = (H * 1024 + sidx).amax(0)
-        row_max = kmax >> 10
-        mj = kmax & 1023
+        # row max and its argmax in one reduction (ties -> larger j);
+        # the key is int32 whatever the cells are
+        kmax = (H.to(torch.int32) * 1024 + sidx32).amax(0)
+        row_max = (kmax >> 10).to(dt)
+        mj = (kmax & 1023).to(dt)
         eq_end = sidx == endc
         Hsh = torch.cat([h1_first[None, :], H[:-1]], 0)
         h1_last = torch.where(sidx == endc - 1, H, neg).amax(0)
@@ -173,7 +203,8 @@ def _group(res, aw):
             torch.zeros_like(best)]
 
 
-def extend_fused(ql, tl, qr, tr, scal, tmax2, prm, cells=None):
+def extend_fused(ql, tl, qr, tr, scal, tmax2, prm, cells=None,
+                 compute_dtype=torch.int32):
     """The fused whole-alignment extension, plain PyTorch.
 
     ql (QL, B), tl (TL, B), qr (QR, B), tr (TR, B): base codes; scal
@@ -181,41 +212,43 @@ def extend_fused(ql, tl, qr, tr, scal, tmax2, prm, cells=None):
     [4]=aw1_l [5]=qlen_r [6]=tlen_r [7]=aw0_r [8]=aw1_r [9]=w; tmax2
     (B/blk, 2) per-block row bounds, which only bound loops and so are
     not needed here.  Returns (32, B) int32: [L0 | L1 | R0 | R1] x
-    [score, qle, tle, gtle, gscore, max_off, aw, 0].  `cells` as in
-    band_pass, summed over the four passes.
+    [score, qle, tle, gtle, gscore, max_off, aw, 0].  `cells` and
+    `compute_dtype` as in band_pass (cells summed over the four
+    passes).
     """
     del tmax2
-    scal = scal.to(torch.int32)
+    scal = scal.to(compute_dtype)
     w = scal[9]
     thr = (w >> 1) + (w >> 2)
-    l0 = band_pass(tl, ql, scal[0], scal[1], scal[2], scal[3], prm,
-                   cells=cells)
+    kw = dict(cells=cells, compute_dtype=compute_dtype)
+    l0 = band_pass(tl, ql, scal[0], scal[1], scal[2], scal[3], prm, **kw)
     conv_l = l0[5] < thr
     l1 = band_pass(tl, ql, scal[0], scal[1], scal[4], scal[3], prm,
-                   inactive=conv_l, cells=cells)
+                   inactive=conv_l, **kw)
     # lanes with no left task fall through to h0_seed (best = h0)
     h0_r = torch.where(conv_l, l0[0], l1[0])
-    r0 = band_pass(tr, qr, scal[5], scal[6], scal[7], h0_r, prm,
-                   cells=cells)
+    r0 = band_pass(tr, qr, scal[5], scal[6], scal[7], h0_r, prm, **kw)
     conv_r = r0[5] < thr
     r1 = band_pass(tr, qr, scal[5], scal[6], scal[8], h0_r, prm,
-                   inactive=conv_r, cells=cells)
+                   inactive=conv_r, **kw)
     rows = (_group(l0, scal[2]) + _group(l1, scal[4])
             + _group(r0, scal[7]) + _group(r1, scal[8]))
     return torch.stack(rows, 0).to(torch.int32)
 
 
-def extend_t(query_t, target_t, scal_t, tmax, prm, cells=None):
+def extend_t(query_t, target_t, scal_t, tmax, prm, cells=None,
+             compute_dtype=torch.int32):
     """One banded pass per lane, plain PyTorch.
 
     query_t (QM, B), target_t (TM, B): base codes; scal_t (8, B) int32
     with rows [qlen, tlen, aw, h0, 0...]; tmax (B/blk,) per-block row
     bounds, which only bound loops and so are not needed here.  Returns
     (8, B) int32: [score, qle, tle, gtle, gscore, max_off, aw, 0].
-    `cells` as in band_pass.
+    `cells` and `compute_dtype` as in band_pass.
     """
     del tmax
-    scal_t = scal_t.to(torch.int32)
+    scal_t = scal_t.to(compute_dtype)
     res = band_pass(target_t, query_t, scal_t[0], scal_t[1], scal_t[2],
-                    scal_t[3], prm, cells=cells)
+                    scal_t[3], prm, cells=cells,
+                    compute_dtype=compute_dtype)
     return torch.stack(_group(res, scal_t[2]), 0).to(torch.int32)

@@ -223,20 +223,41 @@ def chains_of(opt: MemOptions, fm, reads, po=None):
 
 def align_batch(opt: MemOptions, ref: Reference, fm, reads,
                 extend_batch_fn: Callable, names=None, quals=None,
-                po=None, device_cigar: bool = False
+                po=None, device_cigar: bool = False, device=None
                 ) -> list[list[SamRecord]]:
     """Align a batch of reads with batched extension; SAM records equal
     to bwamem_tpu.pipeline.driver.align_batch's.  `po` switches seeding
-    to the native/batched path (identical output).  `device_cigar` is
-    not ported (ROADMAP Queue 1 item 8, slice 4) and raises."""
-    if device_cigar:
-        raise NotImplementedError(
-            "device_cigar is not ported: ROADMAP Queue 1 item 8 (slice 4)")
+    to the native/batched path (identical output).  `device_cigar` runs
+    the reg2aln global realignments (CIGAR traceback included) as
+    batched rounds on `device` too (ops/global_torch), so extension and
+    traceback both leave the host; the output is identical either
+    way.  `device` has no default: device_cigar without it is a
+    ValueError, never a silent choice of the CPU."""
+    if device_cigar and device is None:
+        raise ValueError("align_batch(device_cigar=True) needs device=")
     names = names or [f"read{i}" for i in range(len(reads))]
     quals = quals or [None] * len(reads)
     all_chains = chains_of(opt, fm, reads, po)
     tables = extension_tables(opt, ref, reads, all_chains, extend_batch_fn)
+    all_regions = [None] * len(reads)
+    gtabs = [None] * len(reads)
+    if device_cigar:
+        from bwamem_tpu_torch.ops.global_torch import ksw_global_batch
+
+        for ri, (read, chains) in enumerate(zip(reads, all_chains)):
+            r = A.compute_regions(opt, ref, fm, read,
+                                  table_extend_fn(tables[ri]), chains)
+            all_regions[ri] = A.mark_primary(opt, r)
+        gall = A.batched_global_results(
+            opt, ref, reads, all_regions,
+            lambda tasks: ksw_global_batch(tasks, opt.mat, opt.o_del,
+                                           opt.e_del, opt.o_ins,
+                                           opt.e_ins, device=device))
+        gtabs = [dict() for _ in reads]
+        for (ri, ki), v in gall.items():
+            gtabs[ri][ki] = v
     return [A.align_read(opt, ref, fm, names[ri], read, quals[ri],
                          extend_fn=table_extend_fn(tables[ri]),
-                         chains=chains)
+                         chains=chains, regions=all_regions[ri],
+                         global_results=gtabs[ri])
             for ri, (read, chains) in enumerate(zip(reads, all_chains))]

@@ -19,6 +19,13 @@ with the attributes it looks for (`.fused`, `.idx`, `.bp_quantum`):
 - `pipeline/resident.make_fused_idx_backend` (the default): the windows
   are gathered on the device from the resident reference.
 
+For paired ends it drives the mate-rescue waves (`_device_rescue`) with
+`ops/local_torch.make_rescue_backend` or
+`pipeline/resident.make_rescue_idx_backend`, and for CIGARs the rounds of
+`_device_cigar_rounds` with `ops/global_torch.make_cigar_backend` or
+`pipeline/resident.make_cigar_idx_backend` (`.idx` = meta block only, the
+windows gathered on the device).
+
 Backend calls take host numpy arrays and return host numpy arrays (the
 pipeline calls `np.asarray` on the result): the H2D and D2H copies
 happen inside.  The row bounds (`tmaxb`, `tmax2`) stay on the host,
@@ -42,6 +49,7 @@ import torch
 
 from bwamem_tpu_torch import native
 from bwamem_tpu_torch.config import MemOptions
+from bwamem_tpu_torch.device import to_device
 from bwamem_tpu_torch.io.fasta import Reference
 from bwamem_tpu_torch.io.sam import SamLine, SamRecord
 from bwamem_tpu_torch.ops import extend_cuda
@@ -394,7 +402,7 @@ class NativePipeline:
         """Full single-end alignment of a chunk; returns per-read SAM
         records identical to driver.align_batch.
 
-        With ``cigar_fn`` (a device CIGAR backend: a later slice) the
+        With ``cigar_fn`` (a device CIGAR backend) the
         reg2aln banded-global realignments run ON DEVICE through the
         mp_cigar_* round protocol (band-doubling retries compacted
         across the chunk) instead of host C; output is byte-identical."""
@@ -503,11 +511,11 @@ class NativePipeline:
         insert-size inference over the chunk, mate rescue, pairing,
         record emission — identical output to pair.align_pairs.
 
-        With ``rescue_fn`` (a device rescue backend: a later slice) the
+        With ``rescue_fn`` (a device rescue backend) the
         mem_matesw local-SW batches run ON DEVICE through the
         mp_rescue_* wave protocol instead of host C; output is
         byte-identical (pairs are independent within a wave).  With
-        ``cigar_fn`` (a device CIGAR backend: a later slice) the sam_pe
+        ``cigar_fn`` (a device CIGAR backend) the sam_pe
         reg2aln banded globals run as device rounds over the superset
         of candidate regions (selection happens later, inside
         sam_pe)."""
@@ -702,24 +710,28 @@ class NativePipeline:
         return out
 
 
-def _to(x, dtype, device):
-    return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(device)
-
-
-def make_raw_t_backend(params, device, blk_l: int = 512):
+def make_raw_t_backend(params, device, blk_l: int = 512, *,
+                       compute_dtype=torch.int32):
     """The per-phase backend on `device` (a torch.device):
     raw_t(query_t (qmax, Bp) int8, target_t (tmax, Bp) int8, scal_t
     (8, Bp) int32, tmaxb) -> (8, Bp) int32 numpy.  Lane counts are
-    padded to a multiple of blk_l (`.bp_quantum`)."""
+    padded to a multiple of blk_l (`.bp_quantum`).
+    compute_dtype=torch.int16 runs the 16-bit cell kernel (the range of
+    extend_cuda.check_i16_range, and on every lane h0 + a*qmax < 2^14
+    and aw < 2^14, checked here on the host block: ValueError outside
+    them)."""
     prm = params_vector(params)
     lock = threading.Lock()
 
     def raw_t(query_t, target_t, scal_t, tmaxb):
         with lock:
             raw_t.dispatches += 1
+        if compute_dtype == torch.int16:
+            extend_cuda.check_i16_lanes(prm, scal_t, query_t.shape[0])
         out = extend_cuda.extend_batch_raw_t(
-            _to(query_t, np.int8, device), _to(target_t, np.int8, device),
-            _to(scal_t, np.int32, device), tmaxb, prm)
+            to_device(query_t, np.int8, device), to_device(target_t, np.int8, device),
+            to_device(scal_t, np.int32, device), tmaxb, prm,
+            compute_dtype=compute_dtype)
         return out.cpu().numpy()
 
     raw_t.bp_quantum = blk_l
@@ -727,20 +739,28 @@ def make_raw_t_backend(params, device, blk_l: int = 512):
     return raw_t
 
 
-def make_fused_backend(params, device, blk_l: int = 512):
+def make_fused_backend(params, device, blk_l: int = 512, *,
+                       compute_dtype=torch.int32):
     """The host-shipped-window fused backend on `device` (--ship-ref):
     fused(ql, tl, qr, tr (len, Bp) int8, scal (16, Bp) int32, tmax2) ->
     (32, Bp) int32 numpy.  `.fused` routes NativePipeline to
-    `_run_fused`; without `.idx` it fills and ships the windows."""
+    `_run_fused`; without `.idx` it fills and ships the windows.
+    compute_dtype as in make_raw_t_backend, with the seed score held to
+    h0 + a*(QL + QR) < 2^14 (the right passes start from the left
+    score)."""
     prm = params_vector(params)
     lock = threading.Lock()
 
     def fused(ql, tl, qr, tr, scal, tmax2):
         with lock:
             fused.dispatches += 1
-        win = [_to(x, np.int8, device) for x in (ql, tl, qr, tr)]
+        if compute_dtype == torch.int16:
+            extend_cuda.check_i16_lanes(prm, scal,
+                                        ql.shape[0] + qr.shape[0])
+        win = [to_device(x, np.int8, device) for x in (ql, tl, qr, tr)]
         out = extend_cuda.extend_batch_raw_fused(
-            *win, _to(scal, np.int32, device), tmax2, prm)
+            *win, to_device(scal, np.int32, device), tmax2, prm,
+            compute_dtype=compute_dtype)
         return out.cpu().numpy()
 
     fused.fused = True

@@ -6,23 +6,22 @@ Run from the root of the repository on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phases, each of which fails the run (exit code 1, no result line):
-  1. build   the CUDA kernels from bwamem_tpu_torch/csrc with nvcc (one
-             process per source, all at once) and, beside them, the
-             one-thread-per-alignment kernels they replaced
-             (tests/_baseline_kernels, loaded by this script only, as the
-             yardstick of the timings);
-  2. kernel  the fused extension kernel against its plain PyTorch version
-             on the same CUDA tensors (all 32 rows, every lane) at the
-             main path's shapes and on the hard-case batch of
-             tests/_torch_gate.py, its L0 group against the scalar
-             bwa-0.7.8 oracle on 96 lanes, and kernel, baseline kernel
-             and plain version timed with CUDA events;
-  3. kernel_t the per-phase kernel (extend_t) against its plain version
+  1. build   the four CUDA kernels from bwamem_tpu_torch/csrc with nvcc
+             (one process per source, all at once);
+  2. kernel  the fused extension kernel, with 32-bit cells (extend_fused)
+             and with packed 16-bit cells (extend_fused_i16), each against
+             its plain PyTorch version on the same CUDA tensors (all 32
+             rows, every lane) at the main path's shapes and on the
+             hard-case batch of tests/_torch_gate.py, the 16-bit kernel
+             against the 32-bit kernel, the L0 group against the scalar
+             bwa-0.7.8 oracle on 96 lanes, and both kernels (in turns) and
+             both plain versions timed with CUDA events;
+  3. kernel_t the per-phase kernels (extend_t, extend_t_i16) the same way
              (all 8 rows, every lane) at (qmax, tmax) = (160, 320) and
              (1024, 64) and on the hard-case batch in a query window for
              every group width and strip length of the launch table,
-             fields 0-5 against the scalar oracle on 96 lanes, and the
-             three timed at bench.py's shape;
+             fields 0-5 against the scalar oracle on 96 lanes, and timed
+             at bench.py's shape;
   4. gather  the resident-reference gathers on the GPU against the same
              gathers on the CPU at their edge cases;
   5. main    `python -m bwamem_tpu_torch index|mem` (in this process) on
@@ -39,13 +38,35 @@ Phases, each of which fails the run (exit code 1, no result line):
              the resident run of phase 5 over all reads;
   8. python  the Python host (`--host python --backend cuda`) on the
              first 4,096 reads and 2,048 pairs: SAM byte-identical to
-             the native resident run on the same files.
+             the native resident run on the same files;
+  9. i16     the first 8,192 SE reads through NativePipeline with the
+             16-bit cell backends (compute_dtype=torch.int16, a library
+             argument with no CLI flag): the resident fused backend
+             (make_fused_idx_backend) and the four-pass backend
+             (make_raw_t_backend); records byte-identical to the
+             resident run's, each kernel's launches == its dispatches
+             and no other kernel launched;
+ 10. pe-dev  a second PE set made for the device protocols (2,048 pairs:
+             an eighth of the mates on the wrong strand and an eighth
+             substituted every 9 bases, so the seeder cannot place them
+             and rescue fires; a quarter of the reads with 1-3 indels of
+             1-4 bases) through `mem --backend cuda` with
+             --device-rescue, --device-cigar and both, each also under
+             --ship-ref, and its first ends SE with --device-cigar: every
+             SAM byte-identical to the plain `mem --backend cuda` run on
+             the same files (host rescue, host CIGAR), rescue_w* and
+             cigar_r* trace rows present where asked for, some CIGAR
+             with an I and some with a D;
+ 11. dev-fn  the plain PyTorch functions behind a wave and a round
+             (local_torch.align6, global_torch.global_batch) once each at
+             those runs' largest shapes: GPU == CPU, wall time, Python
+             iterations, kernel launches and device time.
 Each path's launch counts are set to 0 just before it and read just
 after.  Each kernel's bound is the larger of its band cells (counted by
 the plain version on this run's inputs) times INT_OPS_PER_CELL over
-PEAK_INT_OPS and its bytes (inputs read once, outputs written once) over
-PEAK_BYTES.  The last line of standard output is {"ok": true, "device":
-{...}}.
+PEAK_INT_OPS (with 16-bit cells: two cells an operation) and its bytes
+(inputs read once, outputs written once) over PEAK_BYTES.  The last line
+of standard output is {"ok": true, "device": {...}}.
 
 `python3 chip_smoke.py --kernels-only` stops after phase 3.
 
@@ -66,7 +87,6 @@ import shutil
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 
 import numpy as np
@@ -77,6 +97,8 @@ N_SE = 32_768
 N_PE = 8_192
 SUB_SE, SUB_PE = 2_048, 1_024
 PY_SE, PY_PE = 4_096, 2_048        # the Python host's subset (it is slow)
+I16_SE = 8_192                     # reads of the 16-bit resident run
+DEV_PE = 2_048                     # pairs of the device-protocol PE set
 GATE_B = 8192
 GATE_DIMS = (160, 320, 160, 320)   # the main path's (QL, TL, QR, TR)
 WIDE_DIMS = (1024, 64, 1024, 64)   # the widest query window
@@ -90,6 +112,12 @@ PRM = np.array([1, 4, 6, 1, 6, 1, 100, 0], np.int32)  # bwa -Ma, zdrop on
 INT_OPS_PER_CELL = 18
 PEAK_INT_OPS = 132 * 64 * 1.98e9
 PEAK_BYTES = 3.35e12
+
+
+def ops_bound_ms(cells, per_op):
+    """The operations bound of `cells` band cells in ms, `per_op` cells an
+    operation (1 with 32-bit cells, 2 with the packed 16-bit pairs)."""
+    return 1e3 * cells * INT_OPS_PER_CELL / per_op / PEAK_INT_OPS
 
 
 def log(msg: str) -> None:
@@ -119,14 +147,14 @@ def cuda_ms(fn, reps: int) -> float:
 
 def ptxas_summary(log_text):
     """`nvcc -Xptxas -v` output as one entry per kernel: its name (with
-    the <group, strip> template arguments), registers, and spill bytes
-    where there are any."""
+    the <group, strip, cell type> template arguments: i = int32_t, s =
+    int16_t), registers, and spill bytes where there are any."""
     out, name = [], "?"
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = re.sub(r"^_Z\w*?\d+(extend_\w+?_kernel)(?:ILi(\d+)ELi"
-                          r"(\d+)EE)?.*", r"\1<\2,\3>", m.group(1))
+                          r"(\d+)E(\w)E)?.*", r"\1<\2,\3,\4>", m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and (int(m.group(1)) or int(m.group(2))):
@@ -137,128 +165,122 @@ def ptxas_summary(log_text):
     return "; ".join(out)
 
 
-def bind_baseline(lib):
-    """Argument types of the baseline kernels' launchers: the port's,
-    with the two global (qmax + 2, B) H/E scratch rows before the
-    stream."""
-    import ctypes
-
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.bwt_extend_fused.restype = i32
-    lib.bwt_extend_fused.argtypes = (
-        [vp, i32, vp, i32, vp, i32, vp, i32, vp, i64]
-        + [i32] * 7 + [vp, vp, vp, vp])
-    lib.bwt_extend_t.restype = i32
-    lib.bwt_extend_t.argtypes = (
-        [vp, i32, vp, i32, vp, i64] + [i32] * 7 + [vp, vp, vp, vp])
-
-
-def baseline_call(lib, fn, windows, scal, out_rows, prm):
-    """Launch baseline kernel `fn` on the (rows, B) int8 `windows` and
-    `scal`; returns its (out_rows, B) result."""
-    import torch
-
-    from bwamem_tpu_torch.ops.extend_torch import prm_ints
-
-    B = scal.shape[1]
-    qmax = max(w.shape[0] for w in windows[::2])
-    out = torch.empty((out_rows, B), dtype=torch.int32, device=scal.device)
-    eh_h = torch.empty((qmax + 2, B), dtype=torch.int32, device=scal.device)
-    eh_e = torch.empty_like(eh_h)
-    dims = [x for w in windows for x in (w.data_ptr(), w.shape[0])]
-    rc = getattr(lib, fn)(*dims, scal.data_ptr(), B, *prm_ints(prm),
-                          out.data_ptr(), eh_h.data_ptr(), eh_e.data_ptr(),
-                          torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        fail(f"baseline {fn} launch failed: {rc}")
+def time_kernels(name, k32, k16, plain32, plain16, cells, tensors, n_out):
+    """Times of the 32-bit kernel and the 16-bit one on the same batch, in
+    turns (32, 16, 16, 32), and of their plain versions, with the bound
+    of the work: `cells` band cells, `tensors` read once, n_out int32
+    written.  The 16-bit cells are packed two an operation, so their
+    operations bound is half the 32-bit one.  Returns the two entries
+    for the `kernels` line."""
+    if not bool((k32() == k16()).all()):
+        fail(f"{name}: 16-bit kernel != 32-bit kernel on the timed batch")
+    a1, b1 = cuda_ms(k32, 20), cuda_ms(k16, 20)
+    b2, a2 = cuda_ms(k16, 20), cuda_ms(k32, 20)
+    n_bytes = sum(x.numel() * x.element_size() for x in tensors) + 4 * n_out
+    bytes_ms = 1e3 * n_bytes / PEAK_BYTES
+    out = []
+    for what, (t1, t2), plain, per_op in (
+            ("32-bit cells", (a1, a2), plain32, 1),
+            ("16-bit cells, packed", (b1, b2), plain16, 2)):
+        ms, plain_ms = (t1 + t2) / 2, cuda_ms(plain, 2)
+        ops_ms = ops_bound_ms(cells, per_op)
+        bound_ms = max(ops_ms, bytes_ms)
+        log(f"{name}, {what}: kernel {t1:.3f}, {t2:.3f} ms; plain PyTorch "
+            f"{plain_ms:.3f} ms (CUDA events); {cells} band cells -> "
+            f"{cells / ms / 1e6:.3f} Gcell/s; bound {bound_ms:.4f} ms "
+            f"(operations {ops_ms:.4f} ms at {INT_OPS_PER_CELL} integer "
+            f"operations a cell, {per_op} cell(s) an operation, over "
+            f"{PEAK_INT_OPS / 1e12:.2f} TOP/s; bytes {bytes_ms:.4f} ms for "
+            f"{n_bytes} B) = {100 * bound_ms / ms:.1f}% of the kernel's time")
+        out.append({"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms,
+                    "bound_by": "operations" if ops_ms >= bytes_ms
+                    else "bytes",
+                    "library_ms": None, "cells": cells,
+                    "cells_per_operation": per_op})
     return out
 
 
-def time_kernel(name, kernel, baseline, plain, cells, tensors, n_out):
-    """Times of `kernel`, the baseline kernel and the plain version
-    (baseline, kernel, kernel, baseline in turns) and the bound of the
-    work: `cells` band cells, `tensors` read once, n_out int32 written."""
-    if not bool((kernel() == baseline()).all()):
-        fail(f"{name}: baseline kernel != kernel on the timed batch")
-    p1, k1 = cuda_ms(baseline, 10), cuda_ms(kernel, 20)
-    k2, p2 = cuda_ms(kernel, 20), cuda_ms(baseline, 10)
-    plain_ms = cuda_ms(plain, 2)
-    ms, parent_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    n_bytes = sum(x.numel() * x.element_size() for x in tensors) + 4 * n_out
-    ops_ms = 1e3 * cells * INT_OPS_PER_CELL / PEAK_INT_OPS
-    bytes_ms = 1e3 * n_bytes / PEAK_BYTES
-    bound_ms = max(ops_ms, bytes_ms)
-    log(f"{name}: kernel {k1:.3f}, {k2:.3f} ms; baseline kernel (one "
-        f"thread per alignment, global H/E scratch) {p1:.3f}, {p2:.3f} ms; "
-        f"plain PyTorch {plain_ms:.3f} ms (CUDA events); {cells} band "
-        f"cells -> {cells / ms / 1e6:.3f} Gcell/s; bound {bound_ms:.4f} ms "
-        f"(operations {ops_ms:.4f} ms at {INT_OPS_PER_CELL} int32 a cell "
-        f"over {PEAK_INT_OPS / 1e12:.2f} TOP/s, bytes {bytes_ms:.4f} ms for "
-        f"{n_bytes} B) = {100 * bound_ms / ms:.1f}% of the kernel's time "
-        f"(baseline {100 * bound_ms / parent_ms:.1f}%)")
-    return {"max_abs_err": 0, "ms": ms, "parent_ms": parent_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None, "cells": cells}
+CELL_TYPES = (("32-bit", "int32"), ("16-bit", "int16"))
 
 
-def phase_kernel(dev, base):
+def phase_kernel(dev):
+    """The fused kernel with 32-bit and with 16-bit cells: each against
+    its own plain version, the 16-bit one against the 32-bit kernel, and
+    L0 against the scalar oracle; then both timed."""
     import torch
 
     import _torch_gate as gate
     from bwamem_tpu_torch.ops import extend_cuda, extend_torch
 
+    def kernel(t, prm, dt):
+        return extend_cuda.extend_batch_raw_fused(*t, prm, compute_dtype=dt)
+
     prm = PRM
-    result = {}
+    result = None
     for dims, seed in ((GATE_DIMS, 1), (WIDE_DIMS, 2)):
         batch = gate.random_fused_batch(seed, GATE_B, dims, n_pad=100)
         t = [torch.from_numpy(x).to(dev) for x in batch]
-        got = extend_cuda.extend_batch_raw_fused(*t, prm)
-        torch.cuda.synchronize()
-        want = extend_torch.extend_fused(*t, prm)
-        err = int((got.long() - want.long()).abs().max())
-        if err:
-            bad = (got != want).nonzero()[:5].tolist()
-            fail(f"kernel != plain at {dims}: first (row, lane) {bad}")
-        s = batch[4]
-        thr = (s[9] >> 1) + (s[9] >> 2)
-        out = got.cpu().numpy()
-        n_retry = int(((s[0] > 0) & (out[5] >= thr)).sum()
-                      + ((s[5] > 0) & (out[21] >= thr)).sum())
-        lanes = gate.valid_l0_lanes(s)[:96]
-        bad = gate.l0_scalar_mismatches(out, batch[0], batch[1], s, prm,
-                                        lanes)
-        if len(lanes) != 96 or bad:
-            fail(f"L0 != ksw_extend_core at {dims}: {bad[:3]}")
-        log(f"kernel == plain on all 32 rows x {GATE_B} lanes at "
-            f"(QL,TL,QR,TR)={dims} (max_abs_err 0, {n_retry} retry "
-            f"passes, {int((s[0] == 0).sum())} lanes without a left "
-            f"task); L0 == ksw_extend_core on 96 lanes")
+        got32 = None
+        for cells_name, dt_name in CELL_TYPES:
+            dt = getattr(torch, dt_name)
+            got = kernel(t, prm, dt)
+            torch.cuda.synchronize()
+            want = extend_torch.extend_fused(*t, prm, compute_dtype=dt)
+            err = int((got.long() - want.long()).abs().max())
+            if err:
+                bad = (got != want).nonzero()[:5].tolist()
+                fail(f"{cells_name} kernel != plain at {dims}: first (row, "
+                     f"lane) {bad}")
+            if got32 is None:
+                got32 = got
+            elif not torch.equal(got, got32):
+                fail(f"16-bit kernel != 32-bit kernel at {dims}")
+            s = batch[4]
+            thr = (s[9] >> 1) + (s[9] >> 2)
+            out = got.cpu().numpy()
+            n_retry = int(((s[0] > 0) & (out[5] >= thr)).sum()
+                          + ((s[5] > 0) & (out[21] >= thr)).sum())
+            lanes = gate.valid_l0_lanes(s)[:96]
+            bad = gate.l0_scalar_mismatches(out, batch[0], batch[1], s, prm,
+                                            lanes)
+            if len(lanes) != 96 or bad:
+                fail(f"{cells_name} L0 != ksw_extend_core at {dims}: "
+                     f"{bad[:3]}")
+            log(f"{cells_name} kernel == plain on all 32 rows x {GATE_B} "
+                f"lanes at (QL,TL,QR,TR)={dims} (max_abs_err 0, {n_retry} "
+                f"retry passes, {int((s[0] == 0).sum())} lanes without a "
+                f"left task); L0 == ksw_extend_core on 96 lanes")
         if dims == GATE_DIMS:
             cells = [0]
             extend_torch.extend_fused(*t, prm, cells=cells)
-            result = time_kernel(
+            result = time_kernels(
                 f"extend_fused at B={GATE_B} {dims}",
-                lambda: extend_cuda.extend_batch_raw_fused(*t, prm),
-                lambda: baseline_call(base, "bwt_extend_fused", t[:4], t[4],
-                                      32, prm),
-                lambda: extend_torch.extend_fused(*t, prm), cells[0], t[:5],
-                32 * GATE_B)
+                lambda: kernel(t, prm, torch.int32),
+                lambda: kernel(t, prm, torch.int16),
+                lambda: extend_torch.extend_fused(*t, prm),
+                lambda: extend_torch.extend_fused(
+                    *t, prm, compute_dtype=torch.int16),
+                cells[0], t[:5], 32 * GATE_B)
     for qmax in GATE_DIMS[0], WIDE_DIMS[0]:
         batch = gate.hard_fused_batch(11, qmax)
         t = [torch.from_numpy(x).to(dev) for x in batch]
         for zdrop in (100, 0):
             prm = PRM.copy()
             prm[6] = zdrop
-            got = extend_cuda.extend_batch_raw_fused(*t, prm)
-            torch.cuda.synchronize()
-            want = extend_torch.extend_fused(*t, prm)
-            if not torch.equal(got, want):
-                bad = (got != want).nonzero()[:5].tolist()
-                fail(f"kernel != plain on the hard cases at qmax {qmax}, "
-                     f"zdrop {zdrop}: first (row, lane) {bad}")
-        log(f"kernel == plain on all 32 rows x {batch[4].shape[1]} lanes of "
-            f"the hard-case batch at qmax {qmax} (zdrop 100 and 0)")
+            for cells_name, dt_name in CELL_TYPES:
+                dt = getattr(torch, dt_name)
+                got = kernel(t, prm, dt)
+                torch.cuda.synchronize()
+                want = extend_torch.extend_fused(*t, prm, compute_dtype=dt)
+                if not torch.equal(got, want):
+                    bad = (got != want).nonzero()[:5].tolist()
+                    fail(f"{cells_name} kernel != plain on the hard cases at "
+                         f"qmax {qmax}, zdrop {zdrop}: first (row, lane) "
+                         f"{bad}")
+        log(f"32-bit and 16-bit kernels == plain on all 32 rows x "
+            f"{batch[4].shape[1]} lanes of the hard-case batch at qmax "
+            f"{qmax} (zdrop 100 and 0)")
     return result
 
 
@@ -284,33 +306,49 @@ def bench_t_batch():
             np.ascontiguousarray(scal.T), tmax)
 
 
-def phase_kernel_t(dev, base):
+def phase_kernel_t(dev):
+    """The per-phase kernel with 32-bit and with 16-bit cells, as
+    phase_kernel."""
     import torch
 
     import _torch_gate as gate
     from bwamem_tpu_torch.ops import extend_cuda, extend_torch
 
+    def check(args, bounds, q, t, scal, prm, where, need_lanes):
+        """Both kernels against their plain versions and each other, and
+        fields 0-5 against the scalar oracle; returns the oracle's lanes."""
+        got32 = None
+        for cells_name, dt_name in CELL_TYPES:
+            dt = getattr(torch, dt_name)
+            got = extend_cuda.extend_batch_raw_t(*args, bounds, prm,
+                                                 compute_dtype=dt)
+            torch.cuda.synchronize()
+            want = extend_torch.extend_t(*args, bounds, prm,
+                                         compute_dtype=dt)
+            if not torch.equal(got, want):
+                bad = (got != want).nonzero()[:5].tolist()
+                fail(f"extend_t {cells_name} kernel != plain {where}: first "
+                     f"(row, lane) {bad}")
+            if got32 is None:
+                got32 = got
+            elif not torch.equal(got, got32):
+                fail(f"extend_t 16-bit kernel != 32-bit kernel {where}")
+        lanes = gate.valid_l0_lanes(scal)[:96]
+        bad = gate.l0_scalar_mismatches(got32.cpu().numpy(), q, t, scal, prm,
+                                        lanes)
+        if len(lanes) < need_lanes or bad:
+            fail(f"extend_t != ksw_extend_core {where}: {bad[:3]}")
+        return len(lanes)
+
     for (qmax, tmax), seed in zip(T_GATE_DIMS, (3, 4)):
         q, t, scal, bounds = gate.random_t_batch(seed, GATE_B, qmax, tmax,
                                                  n_pad=100)
         args = [torch.from_numpy(x).to(dev) for x in (q, t, scal)]
-        got = extend_cuda.extend_batch_raw_t(*args, bounds, PRM)
-        torch.cuda.synchronize()
-        want = extend_torch.extend_t(*args, bounds, PRM)
-        if not torch.equal(got, want):
-            bad = (got != want).nonzero()[:5].tolist()
-            fail(f"extend_t kernel != plain at ({qmax}, {tmax}): first "
-                 f"(row, lane) {bad}")
-        lanes = gate.valid_l0_lanes(scal)[:96]
-        bad = gate.l0_scalar_mismatches(got.cpu().numpy(), q, t, scal, PRM,
-                                        lanes)
-        if len(lanes) != 96 or bad:
-            fail(f"extend_t != ksw_extend_core at ({qmax}, {tmax}): "
-                 f"{bad[:3]}")
-        log(f"extend_t kernel == plain on all 8 rows x {GATE_B} lanes at "
-            f"(qmax, tmax)=({qmax}, {tmax}) (max_abs_err 0, "
-            f"{int((scal[0] == 0).sum())} lanes without a task); fields "
-            f"0-5 == ksw_extend_core on 96 lanes")
+        check(args, bounds, q, t, scal, PRM, f"at ({qmax}, {tmax})", 96)
+        log(f"extend_t 32-bit and 16-bit kernels == plain on all 8 rows x "
+            f"{GATE_B} lanes at (qmax, tmax)=({qmax}, {tmax}) (max_abs_err "
+            f"0, {int((scal[0] == 0).sum())} lanes without a task) and == "
+            f"each other; fields 0-5 == ksw_extend_core on 96 lanes")
 
     for qmax in T_HARD_QMAX:
         q, t, scal, bounds = gate.hard_t_batch(5, qmax)
@@ -318,22 +356,11 @@ def phase_kernel_t(dev, base):
         for zdrop in (100, 0):
             prm = PRM.copy()
             prm[6] = zdrop
-            got = extend_cuda.extend_batch_raw_t(*args, bounds, prm)
-            torch.cuda.synchronize()
-            want = extend_torch.extend_t(*args, bounds, prm)
-            if not torch.equal(got, want):
-                bad = (got != want).nonzero()[:5].tolist()
-                fail(f"extend_t kernel != plain on the hard cases at qmax "
-                     f"{qmax}, zdrop {zdrop}: first (row, lane) {bad}")
-        lanes = gate.valid_l0_lanes(scal)[:96]
-        bad = gate.l0_scalar_mismatches(got.cpu().numpy(), q, t, scal, prm,
-                                        lanes)
-        if bad:
-            fail(f"extend_t != ksw_extend_core on the hard cases at qmax "
-                 f"{qmax}: {bad[:3]}")
-        log(f"extend_t kernel == plain on all 8 rows x {scal.shape[1]} lanes "
-            f"of the hard-case batch at qmax {qmax} (zdrop 100 and 0); "
-            f"fields 0-5 == ksw_extend_core on {len(lanes)} lanes")
+            n = check(args, bounds, q, t, scal, prm,
+                      f"on the hard cases at qmax {qmax}, zdrop {zdrop}", 1)
+        log(f"extend_t 32-bit and 16-bit kernels == plain on all 8 rows x "
+            f"{scal.shape[1]} lanes of the hard-case batch at qmax {qmax} "
+            f"(zdrop 100 and 0); fields 0-5 == ksw_extend_core on {n} lanes")
 
     q, t, scal, bounds = bench_t_batch()
     prm = PRM.copy()
@@ -345,16 +372,18 @@ def phase_kernel_t(dev, base):
     if not torch.equal(got, extend_torch.extend_t(*args, bounds, prm,
                                                   cells=cells)):
         fail("extend_t kernel != plain at bench.py's shape")
-    return time_kernel(
+    return time_kernels(
         "extend_t at bench.py's shape (B=16384, qmax 104, tmax 256, qlen "
         "100, tlen 200, w 100, zdrop 0; lanes stop at row_max == 0, unlike "
         "bench.py's early_exit=False: not comparable with any bench.py "
         "figure)",
         lambda: extend_cuda.extend_batch_raw_t(*args, bounds, prm),
-        lambda: baseline_call(base, "bwt_extend_t", args[:2], args[2], 8,
-                              prm),
-        lambda: extend_torch.extend_t(*args, bounds, prm), cells[0], args,
-        8 * scal.shape[1])
+        lambda: extend_cuda.extend_batch_raw_t(
+            *args, bounds, prm, compute_dtype=torch.int16),
+        lambda: extend_torch.extend_t(*args, bounds, prm),
+        lambda: extend_torch.extend_t(*args, bounds, prm,
+                                      compute_dtype=torch.int16),
+        cells[0], args, 8 * scal.shape[1])
 
 
 def phase_gather(dev):
@@ -582,7 +611,7 @@ def phase_main(tmp, threads):
         log(f"{label} subset SAM byte-identical (apart from @PG): cuda == "
             f"torch on the CPU")
     return launches, rates, dict(fa=fa, inputs=inputs, sams=sams,
-                                 common=common)
+                                 common=common, threads=threads)
 
 
 def phase_native_path(tmp, run, name, flag, kernel, row_kinds):
@@ -644,6 +673,265 @@ def phase_python_host(tmp, run):
     return counts["extend_t"], rates
 
 
+def phase_i16_path(run, dev):
+    """The first I16_SE reads of the SE set through NativePipeline with
+    the 16-bit cell backends (a library argument: there is no CLI flag),
+    in -b 2048 chunks: the resident fused backend, then the four-pass
+    backend; records byte-identical to the resident CLI run's, and each
+    run launches its 16-bit kernel once a dispatch and no other kernel."""
+    import torch
+
+    from bwamem_tpu_torch.__main__ import load_index
+    from bwamem_tpu_torch.config import MemOptions
+    from bwamem_tpu_torch.index.occ_packed import pack_occ
+    from bwamem_tpu_torch.io.fastq import iter_fastq_chunks
+    from bwamem_tpu_torch.ops import extend_cuda
+    from bwamem_tpu_torch.ops.types import params_from_options
+    from bwamem_tpu_torch.pipeline import native_driver, resident
+
+    opt = MemOptions()      # the CLI's defaults
+    params = params_from_options(opt)
+    ref, fm = load_index(run["fa"])
+    pipe = native_driver.NativePipeline(opt, ref, fm, pack_occ(fm),
+                                        nthreads=run["threads"])
+    chunks = []
+    for chunk in iter_fastq_chunks(run["inputs"]["SE"][0], 2048):
+        chunks.append(chunk)
+        if sum(len(c) for c in chunks) >= I16_SE:
+            break
+    n_reads = sum(len(c) for c in chunks)
+    want = [l for l in sam_body(run["sams"]["SE"]) if not l.startswith("@")]
+    # the resident run's records of the same reads: one or more per read
+    want = want[:next((k for k, l in enumerate(want)
+                       if l.startswith(f"se{n_reads}_")), len(want))]
+    launches = {}
+    for kernel, fn in (
+            ("extend_fused_i16", resident.make_fused_idx_backend(
+                params, ref.pac, dev, compute_dtype=torch.int16)),
+            ("extend_t_i16", native_driver.make_raw_t_backend(
+                params, dev, compute_dtype=torch.int16))):
+        extend_cuda.reset_launches()
+        t0 = time.time()
+        got = "".join(pipe.align_chunk_text(
+            [r.seq.astype(np.int64) for r in chunk], fn,
+            names=[r.name for r in chunk],
+            quals=[r.qual for r in chunk])[0] for chunk in chunks)
+        secs = time.time() - t0
+        counts = dict(extend_cuda.launches)
+        got = got.splitlines(keepends=True)
+        if got != want:
+            diff = next((k for k, (x, y) in enumerate(zip(got, want))
+                         if x != y), min(len(got), len(want)))
+            fail(f"{kernel} path: records differ at line {diff} ({len(got)} "
+                 f"vs {len(want)} lines):\n{got[diff:diff + 1]}\n"
+                 f"{want[diff:diff + 1]}")
+        others = {k: v for k, v in counts.items() if k != kernel and v}
+        if counts[kernel] != fn.dispatches or not fn.dispatches or others:
+            fail(f"{kernel} path: kernel launches {counts} != dispatches "
+                 f"{fn.dispatches}")
+        launches[kernel] = counts[kernel]
+        log(f"{kernel} path: {n_reads} SE reads through NativePipeline with "
+            f"the 16-bit cell backend, {len(got)} records byte-identical to "
+            f"the resident run's; {kernel} launches {counts[kernel]} == "
+            f"dispatches {fn.dispatches}, no other kernel ({secs:.1f}s, one "
+            f"chunk at a time)")
+    return launches["extend_fused_i16"], launches["extend_t_i16"]
+
+
+def simulate_device_pairs(tmp, fa, n):
+    """A PE set for the device protocols on the genome of `fa`: FR pairs,
+    insert N(350, 30), 1% substitutions; pair i has its mate on the wrong
+    strand when i % 8 == 1 and substituted every 9 bases when i % 8 == 5
+    (the seeder cannot place either: rescue fires), and when i % 4 == 2
+    read 1 carries 1-3 insertions or deletions of 1-4 bases."""
+    rng = np.random.default_rng(1)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    with open(fa) as f:
+        f.readline()
+        genome = np.frombuffer(f.read().replace("\n", "").encode(), np.uint8)
+    genome = np.searchsorted(acgt, genome).astype(np.int64)
+    span = np.arange(READ_LEN)
+    pos = rng.integers(0, GENOME_BP - 600, n)
+    isize = rng.normal(350, 30, n).astype(np.int64)
+    paths = [os.path.join(tmp, f"dev{k}.fq") for k in (1, 2)]
+    with open(paths[0], "w") as f1, open(paths[1], "w") as f2:
+        for i in range(n):
+            a = genome[pos[i] + span].copy()
+            m = genome[pos[i] + isize[i] - READ_LEN + span].copy()
+            for r in (a, m):
+                mut = rng.random(READ_LEN) < 0.01
+                r[mut] = rng.integers(0, 4, int(mut.sum()))
+            if i % 4 == 2:
+                for _ in range(int(rng.integers(1, 4))):
+                    cut = int(rng.integers(15, len(a) - 15))
+                    k = int(rng.integers(1, 5))
+                    a = (np.concatenate([a[:cut], a[cut + k:]])
+                         if rng.random() < 0.5 else
+                         np.concatenate([a[:cut], rng.integers(0, 4, k),
+                                         a[cut:]]))
+            if i % 8 == 5:
+                m[4::9] = (m[4::9] + 1 + rng.integers(0, 3, len(m[4::9]))) % 4
+            b = 3 - m[::-1]
+            if i % 8 == 1:
+                b = 3 - b[::-1]
+            for f, r in ((f1, a), (f2, b)):
+                f.write(f"@dev{i}\n{acgt[r].tobytes().decode()}\n+\n"
+                        f"{'I' * len(r)}\n")
+    return paths
+
+
+def trace_sums(path):
+    """{kind without its number: (rows, seconds, largest (Bp, qmax, tmax))}
+    of a --trace file; host_chunk rows split into `host_start` (seeding,
+    chaining, planning: reads > 0) and `host_finish` (rescue, CIGAR,
+    pairing, SAM: reads == 0)."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            row = json.loads(line)
+            kind = row["kind"].rstrip("0123456789")
+            if kind == "host_chunk":
+                kind = "host_start" if row["reads"] else "host_finish"
+            n, sec, shape = out.get(kind, (0, 0.0, (0, 0, 0)))
+            out[kind] = (n + 1, sec + row["sec"], max(
+                shape, (row.get("Bp", 0), row.get("qmax", 0),
+                        row.get("tmax", 0))))
+    return out
+
+
+def phase_pe_device(tmp, run):
+    """--device-rescue and --device-cigar (resident reference and
+    --ship-ref) on the device-protocol PE set, and SE --device-cigar, each
+    against the plain `mem --backend cuda` run on the same files."""
+    from bwamem_tpu_torch.ops import extend_cuda
+
+    pe = simulate_device_pairs(tmp, run["fa"], DEV_PE)
+    common = ["--backend", "cuda", *run["common"]]
+    plain, sums = {}, {}
+    for label, reads in (("PE", pe), ("SE", pe[:1])):
+        plain[label], _, _, _ = run_mem(tmp, f"dev_{label}_plain", run["fa"],
+                                        reads, common)
+        sums[label] = trace_sums(os.path.join(
+            tmp, f"dev_{label}_plain.trace.jsonl"))
+        cigars = [l.split("\t")[5] for l in sam_body(plain[label])
+                  if not l.startswith("@")]
+        n_i, n_d = (sum(op in c for c in cigars) for op in "ID")
+        if not n_i or not n_d:
+            fail(f"device-protocol {label} set: {n_i} CIGARs with I, {n_d} "
+                 f"with D")
+        log(f"device-protocol {label} set: {len(cigars)} records, {n_i} "
+            f"CIGARs with an I, {n_d} with a D; host finish (rescue, CIGAR, "
+            f"pairing, SAM in C++) {sums[label]['host_finish'][1]:.3f}s")
+    runs = [("PE", pe, ship + flags)
+            for ship in ([], ["--ship-ref"])
+            for flags in (["--device-rescue"], ["--device-cigar"],
+                          ["--device-rescue", "--device-cigar"])]
+    runs.append(("SE", pe[:1], ["--device-cigar"]))
+    extend_cuda.reset_launches()
+    n_waves = n_rounds = 0
+    for label, reads, flags in runs:
+        tag = f"dev_{label}_" + "_".join(x.strip("-") for x in flags)
+        sam, kinds, _, _ = run_mem(tmp, tag, run["fa"], reads,
+                                   [*common, *flags])
+        t = trace_sums(os.path.join(tmp, f"{tag}.trace.jsonl"))
+        for flag, kind in (("--device-rescue", "rescue_w"),
+                           ("--device-cigar", "cigar_r")):
+            if (flag in flags) != (kind in t):
+                fail(f"{label} {' '.join(flags)}: trace rows {sorted(t)}")
+        n = same_sam(plain[label], sam, f"{label} {' '.join(flags)} vs plain")
+        n_waves += t.get("rescue_w", (0,))[0]
+        n_rounds += t.get("cigar_r", (0,))[0]
+        log(f"{label} {' '.join(flags)}: SAM byte-identical to the plain run "
+            f"(apart from @PG; {n} lines); "
+            + "; ".join(f"{k} {t[k][0]} rows {1e3 * t[k][1]:.1f} ms, largest "
+                        f"(Bp, qmax, tmax) {t[k][2]}"
+                        for k in ("rescue_w", "cigar_r") if k in t)
+            + f"; host finish {t['host_finish'][1]:.3f}s (plain "
+              f"{sums[label]['host_finish'][1]:.3f}s)")
+    log(f"device protocols: {n_waves} rescue waves and {n_rounds} CIGAR "
+        f"rounds over {len(runs)} runs; extension launches "
+        f"{dict(extend_cuda.launches)}")
+
+
+def phase_device_functions(dev):
+    """The device functions of the rescue waves and CIGAR rounds that are
+    plain PyTorch (no TPU kernel stands behind them): one call each at
+    the shapes phase_pe_device's largest wave and round have, against the
+    same call on the CPU, with its wall time and, from torch.profiler,
+    the kernels it launches and their device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bwamem_tpu_torch.config import MemOptions
+    from bwamem_tpu_torch.ops import global_torch, local_torch
+
+    rng = np.random.default_rng(4)
+    opt = MemOptions()
+    pens = np.array([opt.o_del, opt.e_del, opt.o_ins, opt.e_ins], np.int32)
+
+    def tasks(B, qmax, tmax, qlen):
+        """Queries of qlen bases planted with 2% substitutions at a
+        random place of their (tmax) target; the last 8th of the lanes
+        padding (lengths 0, or 1 for the global alignment)."""
+        t = rng.integers(0, 4, (B, tmax)).astype(np.int32)
+        off = rng.integers(0, tmax - qlen + 1, B)
+        q = np.full((B, qmax), 4, np.int32)
+        q[:, :qlen] = t[np.arange(B)[:, None], off[:, None]
+                        + np.arange(qlen)]
+        mut = rng.random((B, qlen)) < 0.02
+        q[:, :qlen][mut] = rng.integers(0, 4, int(mut.sum()))
+        return q, t
+
+    def timed(name, fn, shape, loops):
+        want = fn("cpu") if shape[0] <= 2048 else None
+        got = fn(dev)                       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = fn(dev)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        if want is not None:
+            for g, w in zip(got, want):
+                if not torch.equal(g.cpu(), w):
+                    fail(f"{name}: GPU != CPU at {shape}")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(dev)
+            torch.cuda.synchronize()
+        rows = [(e.count, getattr(e, "self_device_time_total",
+                                  getattr(e, "self_cuda_time_total", 0)))
+                for e in prof.key_averages()]
+        rows = [(n, us) for n, us in rows if us > 0]
+        log(f"{name} at (B, qmax, tmax)={shape}: {1e3 * wall:.1f} ms wall a "
+            f"call (host clock around a synchronize), {loops} Python "
+            f"iterations, {sum(n for n, _ in rows)} kernel launches, "
+            f"{sum(us for _, us in rows) / 1e3:.1f} ms of device time "
+            f"(torch.profiler)"
+            + ("" if want is None else "; GPU == CPU"))
+
+    def on(device, *arrays):
+        return [torch.from_numpy(x).to(device) for x in arrays]
+
+    B, qmax, tmax = 8192, 160, 512
+    q, t = tasks(B, qmax, tmax, 150)
+    qlen = np.where(np.arange(B) < B - B // 8, 150, 0).astype(np.int32)
+    tlen = np.where(qlen > 0, tmax, 0).astype(np.int32)
+    timed("local_torch.align6 (a rescue wave)",
+          lambda d: (local_torch.align6(*on(d, q, qlen, t, tlen,
+                                            opt.mat.astype(np.int32),
+                                            pens)),),
+          (B, qmax, tmax), 2 * tmax)
+    B, qmax, tmax = 2048, 160, 160
+    q, t = tasks(B, qmax, tmax, 150)
+    t = np.ascontiguousarray(t[:, :tmax])
+    qlen = np.where(np.arange(B) < B - B // 8, 150, 1).astype(np.int32)
+    tlen = np.where(qlen > 1, 156, 1).astype(np.int32)
+    w = np.full(B, 19, np.int32)
+    timed("global_torch.global_batch (a CIGAR round)",
+          lambda d: global_torch.global_batch(
+              *on(d, q, qlen, t, tlen, w, opt.mat.astype(np.int32), pens)),
+          (B, qmax, tmax), tmax + qmax + tmax)
+
+
 def main() -> int:
     t_start = time.time()
     try:
@@ -672,26 +960,15 @@ def main() -> int:
 
     from bwamem_tpu_torch.ops import _build
 
-    # both builds at once: every nvcc process starts together
-    built = {}
-    side = threading.Thread(target=lambda: built.update(base=_build.build(
-        os.path.join(root, "tests", "_baseline_kernels"),
-        os.path.join(_build.BUILD_DIR, "baseline"), bind_baseline)))
-    side.start()
     kl = _build.load()
-    side.join()
-    if "base" not in built:
-        fail("the baseline kernels did not build")
-    for what, lib in (("CUDA kernels", kl), ("baseline kernels",
-                                             built["base"])):
-        log(f"{what} built in {lib.build_seconds:.1f}s -> "
-            f"{os.path.relpath(lib.path, root)}; ptxas: "
-            f"{ptxas_summary(lib.log)}")
+    log(f"CUDA kernels built in {kl.build_seconds:.1f}s -> "
+        f"{os.path.relpath(kl.path, root)}; ptxas: {ptxas_summary(kl.log)}")
 
-    timing = phase_kernel(dev, built["base"].lib)
-    timing_t = phase_kernel_t(dev, built["base"].lib)
+    timing, timing_i16 = phase_kernel(dev)
+    timing_t, timing_t_i16 = phase_kernel_t(dev)
     if "--kernels-only" in sys.argv[1:]:
-        print(json.dumps({"kernels": [timing, timing_t]}), flush=True)
+        print(json.dumps({"kernels": [timing, timing_t, timing_i16,
+                                      timing_t_i16]}), flush=True)
         return 0
     phase_gather(dev)
     tmp = tempfile.mkdtemp(prefix="bwamem_smoke_")
@@ -704,6 +981,9 @@ def main() -> int:
             tmp, run, "ship_ref", "--ship-ref", "extend_fused",
             ("extend_fused",))
         _, rates_py = phase_python_host(tmp, run)
+        launches_i16, launches_t_i16 = phase_i16_path(run, dev)
+        phase_pe_device(tmp, run)
+        phase_device_functions(dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for name, r in (("resident (default)", rates), ("--phased", rates_phased),
@@ -714,15 +994,21 @@ def main() -> int:
             f"(--backend cuda, -b 2048 --inflight 3) on {smi}")
     log(f"total wall {time.time() - t_start:.1f}s")
     print(smi, flush=True)
+    fused_src = "bwamem_tpu_torch/csrc/extend_fused.cu"
+    t_src = "bwamem_tpu_torch/csrc/extend_t.cu"
     print(json.dumps({"kernels": [
-        {"name": "extend_fused", "route": "cuda",
-         "source": "bwamem_tpu_torch/csrc/extend_fused.cu",
+        {"name": "extend_fused", "route": "cuda", "source": fused_src,
          "replaces": "bwamem_tpu/ops/extend_pallas.py:292",
          "launches": launches, **timing},
-        {"name": "extend_t", "route": "cuda",
-         "source": "bwamem_tpu_torch/csrc/extend_t.cu",
+        {"name": "extend_t", "route": "cuda", "source": t_src,
          "replaces": "bwamem_tpu/ops/extend_pallas.py:255",
-         "launches": launches_t, **timing_t}]}), flush=True)
+         "launches": launches_t, **timing_t},
+        {"name": "extend_fused_i16", "route": "cuda", "source": fused_src,
+         "replaces": "bwamem_tpu/ops/extend_pallas.py:432",
+         "launches": launches_i16, **timing_i16},
+        {"name": "extend_t_i16", "route": "cuda", "source": t_src,
+         "replaces": "bwamem_tpu/ops/extend_pallas.py:383",
+         "launches": launches_t_i16, **timing_t_i16}]}), flush=True)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "bwamem_tpu"))
     if loaded:

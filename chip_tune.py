@@ -2,7 +2,7 @@
 """Launch-table experiment for the extension kernels of bwamem_tpu_torch,
 on a machine with one NVIDIA GPU:
 
-    python3 chip_tune.py
+    python3 chip_tune.py [--against DIR]...
 
 The pass of bwamem_tpu_torch/csrc/band_pass.cuh gives each alignment a
 group of G threads, each with a strip of C query columns; the table of
@@ -13,9 +13,15 @@ launch_table.cuh), checks every build against the plain version, and times
 them in turns with CUDA events on five batches: bench.py's per-phase
 shape, chip_smoke.py's fused gate batch, a fused batch shaped like
 150 bp reads (near-identical target, 1% substitutions), and per-phase
-batches in 160 and 64 column windows.  For the kernels as they are it
+batches in 160 and 64 column windows, each with 32-bit cells and with the
+packed 16-bit cells (the _i16 entry points).  For the kernels as they are it
 also prints, from `cuobjdump -sass`, the length in SASS lines of each
 kernel's row loop (the span of its innermost backward branch).
+
+With `--against DIR`, a directory holding another version of the kernel
+sources (say csrc/ of an earlier commit) is built and timed as one more
+table, "against", on the entry points it has; a second and later DIR is
+listed as "against:" and its last path component.
 
 It prints one line per batch: the band cells the inputs need, the bound
 chip_smoke.py computes from them, and each table's times in ms.  Nothing
@@ -58,14 +64,16 @@ def with_table(src, dst, table):
 
 
 def row_loop_sizes(nvcc, lib_path):
-    """{kernel<G,C>: SASS lines from the target of the innermost backward
-    branch to the branch} out of `cuobjdump -sass`."""
+    """{kernel<G,C,cell type (i = int32_t, s = int16_t)>: SASS lines from
+    the target of the innermost backward branch to the branch} out of
+    `cuobjdump -sass`."""
     exe = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     r = subprocess.run([exe, "-sass", lib_path], capture_output=True,
                        text=True, timeout=300)
     sizes = {}
     for fn in r.stdout.split("Function :")[1:]:
-        m = re.search(r"(extend_(?:t|fused)_kernel)ILi(\d+)ELi(\d+)E", fn)
+        m = re.search(r"(extend_(?:t|fused)_kernel)ILi(\d+)ELi(\d+)E(\w)E",
+                      fn)
         if not m:
             continue
         addrs, loops = [], []
@@ -82,8 +90,8 @@ def row_loop_sizes(nvcc, lib_path):
                 loops.append((int(tgt.group(1), 16), addr))
         if loops:
             lo, hi = min(loops, key=lambda x: x[1] - x[0])
-            sizes[f"{m.group(1)}<{m.group(2)},{m.group(3)}>"] = sum(
-                lo <= x <= hi for x in addrs)
+            key = f"{m.group(1)}<{m.group(2)},{m.group(3)},{m.group(4)}>"
+            sizes[key] = sum(lo <= x <= hi for x in addrs)
     return sizes
 
 
@@ -126,14 +134,30 @@ def main() -> int:
     dev = torch.device("cuda:0")
     tmp = tempfile.mkdtemp(prefix="bwamem_tune_")
     libs = {}
-    for name, table in TABLES.items():
+    def bind_present(lib):
+        """_build._bind for a library that may lack the newer entries."""
+        class Present:
+            def __getattr__(self, fn):
+                return getattr(lib, fn) if hasattr(lib, fn) else self
+        _build._bind(Present())
+
+    sources = {name: _build.CSRC for name in TABLES}
+    tables = dict(TABLES)
+    argv = sys.argv[1:]
+    for k, arg in enumerate(argv):
+        if arg == "--against":
+            name = "against" if "against" not in sources else \
+                "against:" + os.path.basename(argv[k + 1].rstrip("/"))
+            sources[name] = argv[k + 1]
+            tables[name] = None
+    for name, table in tables.items():
         csrc = os.path.join(tmp, name)
-        with_table(_build.CSRC, csrc, table)
-        kl = _build.build(csrc, os.path.join(csrc, "build"), _build._bind)
+        with_table(sources[name], csrc, table)
+        kl = _build.build(csrc, os.path.join(csrc, "build"), bind_present)
         libs[name] = kl.lib
         print(f"{name}: built in {kl.build_seconds:.1f}s; "
               f"{cs.ptxas_summary(kl.log)}", flush=True)
-        if table is None:
+        if name == "committed":
             print(f"{name}: row loop SASS lines "
                   f"{json.dumps(row_loop_sizes(_build._nvcc(), kl.path))}",
                   flush=True)
@@ -169,24 +193,31 @@ def main() -> int:
          cs.PRM),
         ("extend_t (64,128)", "bwt_extend_t", on_dev(*t64[:3]), cs.PRM),
     ]
-    for what, fn, tensors, prm in batches:
+    # (..., cells an operation): the packed 16-bit pairs halve the bound
+    batches = [(f"{what}{tag}", fn + suffix, tensors, prm, per_op)
+               for what, fn, tensors, prm in batches
+               for tag, suffix, per_op in (("", "", 1),
+                                           (", 16-bit cells", "_i16", 2))]
+    for what, fn, tensors, prm, per_op in batches:
         *windows, scal_d = tensors
-        rows = 8 if fn == "bwt_extend_t" else 32
+        rows = 8 if fn.startswith("bwt_extend_t") else 32
         plain = (extend_torch.extend_t if rows == 8
                  else extend_torch.extend_fused)
         cells = [0]
         want = plain(*tensors, None, prm, cells=cells)
-        times = {name: [] for name in libs}
+        have = {name: lib for name, lib in libs.items() if hasattr(lib, fn)}
+        times = {name: [] for name in have}
         for _ in range(2):
-            for name, lib in libs.items():
+            for name, lib in have.items():
                 got = call(lib, fn, windows, scal_d, rows, prm)
                 if not torch.equal(got, want):
                     sys.exit(f"{what}: table {name} != plain")
                 times[name].append(round(cs.cuda_ms(
                     lambda: call(lib, fn, windows, scal_d, rows, prm), 20),
                     4))
-        bound = 1e3 * cells[0] * cs.INT_OPS_PER_CELL / cs.PEAK_INT_OPS
-        print(f"{what}: {cells[0]} band cells, bound {bound:.4f} ms, "
+        bound = cs.ops_bound_ms(cells[0], per_op)
+        print(f"{what}: {cells[0]} band cells, bound {bound:.4f} ms "
+              f"({per_op} cell(s) an operation), "
               f"ms by table {json.dumps(times)}", flush=True)
     shutil.rmtree(tmp, ignore_errors=True)
     return 0

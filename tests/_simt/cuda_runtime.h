@@ -59,6 +59,58 @@ inline int __viaddmax_s32_relu(int a, int b, int c) {
   return std::max(std::max(a + b, c), 0);
 }
 
+// The packed 16-bit DPX intrinsics, with the semantics of the CUDA math
+// API: each half of the 32-bit word is a signed 16-bit integer, sums wrap.
+namespace simt {
+inline int16_t half(unsigned v, int k) { return (int16_t)(v >> (16 * k)); }
+template <class F>
+inline unsigned per_half(F f) {
+  return (unsigned)(uint16_t)f(0) | ((unsigned)(uint16_t)f(1) << 16);
+}
+inline int16_t wrap_add(int16_t a, int16_t b) {
+  return (int16_t)(uint16_t)((unsigned)a + (unsigned)b);
+}
+}  // namespace simt
+
+inline unsigned __viaddmax_s16x2(unsigned a, unsigned b, unsigned c) {
+  return simt::per_half([&](int k) {
+    return std::max(simt::wrap_add(simt::half(a, k), simt::half(b, k)),
+                    simt::half(c, k));
+  });
+}
+
+inline unsigned __viaddmax_s16x2_relu(unsigned a, unsigned b, unsigned c) {
+  return simt::per_half([&](int k) {
+    return std::max<int16_t>(
+        std::max(simt::wrap_add(simt::half(a, k), simt::half(b, k)),
+                 simt::half(c, k)),
+        0);
+  });
+}
+
+inline unsigned __vimax3_s16x2(unsigned a, unsigned b, unsigned c) {
+  return simt::per_half([&](int k) {
+    return std::max(simt::half(a, k),
+                    std::max(simt::half(b, k), simt::half(c, k)));
+  });
+}
+
+inline unsigned __vimin3_s16x2(unsigned a, unsigned b, unsigned c) {
+  return simt::per_half([&](int k) {
+    return std::min(simt::half(a, k),
+                    std::min(simt::half(b, k), simt::half(c, k)));
+  });
+}
+
+// max(a, b) per half; each predicate says whether a's half was >= b's
+inline unsigned __vibmax_s16x2(unsigned a, unsigned b, bool* pred_hi,
+                               bool* pred_lo) {
+  *pred_lo = simt::half(a, 0) >= simt::half(b, 0);
+  *pred_hi = simt::half(a, 1) >= simt::half(b, 1);
+  return simt::per_half(
+      [&](int k) { return std::max(simt::half(a, k), simt::half(b, k)); });
+}
+
 // PTX prmt.b32 in its default mode: byte n of the result is byte s[4n+2:4n]
 // of {y, x}, or that byte's sign over all 8 bits where s[4n+3] is set.
 inline unsigned prmt_b32(unsigned x, unsigned y, unsigned s) {

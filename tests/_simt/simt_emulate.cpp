@@ -91,12 +91,12 @@ namespace {
 
 // Every alignment of a launch, group by group, with the block's shared
 // memory and the indices a real launch would give each thread.
-template <int G, int C, class Body>
+template <int G, int C, class Cell, class Body>
 int run_launch(int64_t B, int qmax, Body body) {
   unsigned blocks;
   int ncol;
   size_t smem_bytes;
-  launch_shape<G, C>(B, qmax, &blocks, &ncol, &smem_bytes);
+  launch_shape<G, C, Cell>(B, qmax, &blocks, &ncol, &smem_bytes);
   std::vector<unsigned char> smem(smem_bytes + 16);
   struct Arg {
     Body* body;
@@ -118,6 +118,7 @@ int run_launch(int64_t B, int qmax, Body body) {
   return 0;
 }
 
+template <class Cell>
 struct EmuT {
   const int8_t* q;
   int qmax;
@@ -129,14 +130,17 @@ struct EmuT {
   int* out;
   template <int G, int C>
   int run() const {
+    constexpr int kC = strip_columns<C, Cell>();
     const EmuT& s = *this;
-    return run_launch<G, C>(B, qmax, [s](int ncol, unsigned char* smem) {
-      extend_t_body<G, C>(s.q, s.qmax, s.t, s.tmax, s.scal, s.B, s.p, s.out,
-                          ncol, smem);
-    });
+    return run_launch<G, kC, Cell>(
+        B, qmax, [s](int ncol, unsigned char* smem) {
+          extend_t_body<G, kC, Cell>(s.q, s.qmax, s.t, s.tmax, s.scal, s.B,
+                                     s.p, s.out, ncol, smem);
+        });
   }
 };
 
+template <class Cell>
 struct EmuFused {
   const int8_t *ql, *tl, *qr, *tr;
   int QL, TL, QR, TR;
@@ -146,47 +150,81 @@ struct EmuFused {
   int* out;
   template <int G, int C>
   int run() const {
+    constexpr int kC = strip_columns<C, Cell>();
     const EmuFused& s = *this;
-    return run_launch<G, C>(
+    return run_launch<G, kC, Cell>(
         B, QL > QR ? QL : QR, [s](int ncol, unsigned char* smem) {
-          extend_fused_body<G, C>(s.ql, s.QL, s.tl, s.TL, s.qr, s.QR, s.tr,
-                                  s.TR, s.scal, s.B, s.p, s.out, ncol, smem);
+          extend_fused_body<G, kC, Cell>(s.ql, s.QL, s.tl, s.TL, s.qr, s.QR,
+                                         s.tr, s.TR, s.scal, s.B, s.p, s.out,
+                                         ncol, smem);
         });
   }
 };
+
+template <class Cell>
+int emu_t(const void* q, int qmax, const void* t, int tmax, const void* scal,
+          long long B, const Prm& p, void* out) {
+  if (B <= 0) return 0;
+  const EmuT<Cell> l{static_cast<const int8_t*>(q), qmax,
+                     static_cast<const int8_t*>(t), tmax,
+                     static_cast<const int32_t*>(scal), (int64_t)B, p,
+                     static_cast<int*>(out)};
+  return dispatch_shape(qmax, l);
+}
+
+template <class Cell>
+int emu_fused(const void* ql, int QL, const void* tl, int TL, const void* qr,
+              int QR, const void* tr, int TR, const void* scal, long long B,
+              const Prm& p, void* out) {
+  if (B <= 0) return 0;
+  const EmuFused<Cell> l{static_cast<const int8_t*>(ql),
+                         static_cast<const int8_t*>(tl),
+                         static_cast<const int8_t*>(qr),
+                         static_cast<const int8_t*>(tr),
+                         QL, TL, QR, TR,
+                         static_cast<const int32_t*>(scal), (int64_t)B, p,
+                         static_cast<int*>(out)};
+  return dispatch_shape(QL > QR ? QL : QR, l);
+}
 
 }  // namespace
 
 extern "C" {
 
 // The launchers of extend_t.cu and extend_fused.cu without a stream: the
-// same arguments over host memory, the same shape dispatch.
+// same arguments over host memory, the same shape dispatch, 32-bit cells
+// and (_i16) packed 16-bit cells.
 int emu_extend_t(const void* q, int qmax, const void* t, int tmax,
                  const void* scal, long long B, int a, int b, int o_del,
                  int e_del, int o_ins, int e_ins, int zdrop, void* out) {
-  if (B <= 0) return 0;
-  const EmuT l{static_cast<const int8_t*>(q), qmax,
-               static_cast<const int8_t*>(t), tmax,
-               static_cast<const int32_t*>(scal), (int64_t)B,
-               Prm{a, b, o_del, e_del, o_ins, e_ins, zdrop},
-               static_cast<int*>(out)};
-  return dispatch_shape(qmax, l);
+  return emu_t<int32_t>(q, qmax, t, tmax, scal, B,
+                        Prm{a, b, o_del, e_del, o_ins, e_ins, zdrop}, out);
+}
+
+int emu_extend_t_i16(const void* q, int qmax, const void* t, int tmax,
+                     const void* scal, long long B, int a, int b, int o_del,
+                     int e_del, int o_ins, int e_ins, int zdrop, void* out) {
+  return emu_t<int16_t>(q, qmax, t, tmax, scal, B,
+                        Prm{a, b, o_del, e_del, o_ins, e_ins, zdrop}, out);
 }
 
 int emu_extend_fused(const void* ql, int QL, const void* tl, int TL,
                      const void* qr, int QR, const void* tr, int TR,
                      const void* scal, long long B, int a, int b, int o_del,
                      int e_del, int o_ins, int e_ins, int zdrop, void* out) {
-  if (B <= 0) return 0;
-  const EmuFused l{static_cast<const int8_t*>(ql),
-                   static_cast<const int8_t*>(tl),
-                   static_cast<const int8_t*>(qr),
-                   static_cast<const int8_t*>(tr),
-                   QL, TL, QR, TR,
-                   static_cast<const int32_t*>(scal), (int64_t)B,
-                   Prm{a, b, o_del, e_del, o_ins, e_ins, zdrop},
-                   static_cast<int*>(out)};
-  return dispatch_shape(QL > QR ? QL : QR, l);
+  return emu_fused<int32_t>(ql, QL, tl, TL, qr, QR, tr, TR, scal, B,
+                            Prm{a, b, o_del, e_del, o_ins, e_ins, zdrop},
+                            out);
+}
+
+int emu_extend_fused_i16(const void* ql, int QL, const void* tl, int TL,
+                         const void* qr, int QR, const void* tr, int TR,
+                         const void* scal, long long B, int a, int b,
+                         int o_del, int e_del, int o_ins, int e_ins,
+                         int zdrop, void* out) {
+  return emu_fused<int16_t>(ql, QL, tl, TL, qr, QR, tr, TR, scal, B,
+                            Prm{a, b, o_del, e_del, o_ins, e_ins, zdrop},
+                            out);
 }
 
 }  // extern "C"

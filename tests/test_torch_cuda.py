@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (bwamem_tpu_torch/csrc/extend_fused.cu,
-extend_t.cu) against their plain PyTorch versions on the same CUDA
-tensors, exact on every row and lane, and the port's backend on the GPU
+extend_t.cu; 32-bit cells and packed 16-bit cells) against their plain
+PyTorch versions on the same CUDA tensors, exact on every row and lane,
+the 16-bit kernels against the 32-bit ones, and the port's backend on the GPU
 against the same backend on the CPU.  The tests marked `cuda` need an NVIDIA
 GPU and skip without one; run them on the card with
 `python -m pytest --noconftest tests/test_torch_cuda.py -q` (this file
@@ -65,6 +66,40 @@ def test_extend_t_kernel_matches_plain(cuda, qmax, tmax, zdrop):
     lanes = gate.valid_l0_lanes(batch[2])[:96]
     assert gate.l0_scalar_mismatches(got.cpu().numpy(), batch[0], batch[1],
                                      batch[2], _prm(zdrop), lanes) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(160, 320, 160, 320), (64, 128, 32, 128),
+                                  (1024, 64, 1024, 64)])
+def test_i16_kernels_match_plain_and_i32_kernels(cuda, dims):
+    """extend_fused_i16 and extend_t_i16 == the plain 16-bit version ==
+    the 32-bit kernels, and count their own launches; a failed range check
+    raises and launches nothing (no fallback to the 32-bit kernel)."""
+    i16 = torch.int16
+    batch = gate.random_fused_batch(19, 2048, dims, n_pad=37)
+    t = [torch.from_numpy(x).to(cuda) for x in batch]
+    extend_cuda.reset_launches()
+    got = extend_cuda.extend_batch_raw_fused(*t, _prm(), compute_dtype=i16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, extend_torch.extend_fused(*t, _prm(),
+                                                      compute_dtype=i16))
+    assert torch.equal(got, extend_cuda.extend_batch_raw_fused(*t, _prm()))
+    batch = gate.random_t_batch(20, 2048, dims[0], dims[1], n_pad=41)
+    t = [torch.from_numpy(x).to(cuda) for x in batch[:3]] + [batch[3]]
+    got = extend_cuda.extend_batch_raw_t(*t, _prm(), compute_dtype=i16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, extend_torch.extend_t(*t, _prm(),
+                                                  compute_dtype=i16))
+    assert torch.equal(got, extend_cuda.extend_batch_raw_t(*t, _prm()))
+    assert extend_cuda.launches == {"extend_fused": 1, "extend_t": 1,
+                                    "extend_fused_i16": 1, "extend_t_i16": 1}
+    bad = _prm()
+    bad[0] = 127                        # a*qmax >= 2^14 at 160 columns up
+    if dims[0] >= 160:
+        with pytest.raises(ValueError, match="16-bit"):
+            extend_cuda.extend_batch_raw_t(*t, bad, compute_dtype=i16)
+        assert extend_cuda.launches["extend_t_i16"] == 1
+        assert extend_cuda.launches["extend_t"] == 1
 
 
 @pytest.mark.cuda

@@ -6,7 +6,11 @@ scalar bwa-0.7.8 oracle (extend_ref.ksw_extend_core), and the port's
 host half (ops/extend.py) against extend_pallas's.  Inputs are made
 from a seed with numpy; tolerance is exact — every output is an
 integer — on every row and lane, padding lanes and lanes that did not
-retry included."""
+retry included.  The 16-bit cell versions (compute_dtype=torch.int16)
+are held the same way to the Pallas kernels at compute_dtype=jnp.int16
+in interpret mode, to the port's own 32-bit plain version and to the
+scalar oracle, inside the range the wrapper states, and the wrapper's
+refusals outside it."""
 
 import numpy as np
 import pytest
@@ -31,17 +35,17 @@ def _prm(a=1, b=4, o_del=6, e_del=1, o_ins=6, e_ins=1, zdrop=100):
     return np.array([a, b, o_del, e_del, o_ins, e_ins, zdrop, 0], np.int32)
 
 
-def _pallas(batch, prm):
+def _pallas(batch, prm, dt=jnp.int32):
     ql, tl, qr, tr, scal, tmax2 = batch
     return np.asarray(extend_pallas.extend_batch_raw_fused(
         *(jnp.asarray(x.astype(np.int32)) for x in (ql, tl, qr, tr)),
         jnp.asarray(scal), jnp.asarray(tmax2), jnp.asarray(prm),
-        blk_l=BLK, interpret=True))
+        blk_l=BLK, interpret=True, compute_dtype=dt))
 
 
-def _plain(batch, prm):
+def _plain(batch, prm, dt=torch.int32):
     out = extend_cuda.extend_batch_raw_fused(
-        *(torch.from_numpy(x) for x in batch), prm)
+        *(torch.from_numpy(x) for x in batch), prm, compute_dtype=dt)
     assert out.dtype == torch.int32 and out.shape == (32, batch[4].shape[1])
     return out.numpy()
 
@@ -151,17 +155,17 @@ def test_kernel_prm_refuses_scores_outside_a_signed_byte():
             extend_cuda.kernel_prm(bad)
 
 
-def _pallas_t(batch, prm):
+def _pallas_t(batch, prm, dt=jnp.int32):
     q, t, scal, tmax = batch
     return np.asarray(extend_pallas.extend_batch_raw_t(
         jnp.asarray(q.astype(np.int32)), jnp.asarray(t.astype(np.int32)),
         jnp.asarray(scal), jnp.asarray(tmax), prm=jnp.asarray(prm),
-        blk_l=BLK, interpret=True))
+        blk_l=BLK, interpret=True, compute_dtype=dt))
 
 
-def _plain_t(batch, prm):
+def _plain_t(batch, prm, dt=torch.int32):
     out = extend_cuda.extend_batch_raw_t(
-        *(torch.from_numpy(x) for x in batch), prm)
+        *(torch.from_numpy(x) for x in batch), prm, compute_dtype=dt)
     assert out.dtype == torch.int32 and out.shape == (8, batch[2].shape[1])
     return out.numpy()
 
@@ -310,3 +314,179 @@ def test_fused_hard_cases_match_pallas_and_oracle(qmax, zdrop):
     assert qmax < 100 or (n_retry_l > 0 and n_retry_r > 0)
     n, bad = _oracle_mismatches(got, batch[0], batch[1], batch[4], prm)
     assert n >= 27 and bad == [], bad[:3]
+
+
+# ---- 16-bit cells --------------------------------------------------------
+
+
+def _all_equal(*outs):
+    for o in outs[1:]:
+        bad = np.argwhere(o != outs[0])
+        assert bad.size == 0, (bad[:8], o[tuple(bad[0])],
+                               outs[0][tuple(bad[0])])
+
+
+@pytest.mark.parametrize("pen", [(1, 4, 6, 1, 6, 1), (1, 4, 5, 2, 7, 3),
+                                 (2, 3, 2, 1, 2, 1)])
+@pytest.mark.parametrize("zdrop", [100, 0])
+def test_i16_gate_batches_match_pallas_i16_and_i32(pen, zdrop):
+    """The gate batches with 16-bit cells: plain extend_t and extend_fused
+    == the Pallas kernels at compute_dtype=jnp.int16 (interpret mode) ==
+    the port's 32-bit plain version, on every row and lane."""
+    prm = _prm(*pen, zdrop=zdrop)
+    batch = gate.random_t_batch(sum(pen) * 5 + zdrop, 2 * BLK, 48, 96,
+                                n_pad=19, blk_l=BLK)
+    _all_equal(_plain_t(batch, prm, torch.int16),
+               _pallas_t(batch, prm, jnp.int16), _plain_t(batch, prm))
+    batch = gate.random_fused_batch(sum(pen) * 7 + zdrop, 2 * BLK,
+                                    (48, 96, 48, 96), n_pad=21, blk_l=BLK)
+    got = _plain(batch, prm, torch.int16)
+    _all_equal(got, _pallas(batch, prm, jnp.int16), _plain(batch, prm))
+    n_retry_l, n_conv_l, n_retry_r = _retry_counts(got, batch[4])
+    assert n_retry_l + n_retry_r > 0 and n_conv_l > 0
+
+
+@pytest.mark.parametrize("qmax,zdrop", [(33, 100), (33, 0), (160, 100),
+                                        (160, 0), (300, 100), (300, 0)])
+def test_i16_extend_t_hard_cases(qmax, zdrop):
+    """The hard-case batch in the query windows inside the 16-bit range:
+    plain 16-bit extend_t == the Pallas kernel at jnp.int16 == the 32-bit
+    plain version on all 8 rows, and == ksw_extend_core."""
+    batch = gate.hard_t_batch(5, qmax, blk_l=BLK)
+    prm = _prm(zdrop=zdrop)
+    got = _plain_t(batch, prm, torch.int16)
+    _all_equal(got, _pallas_t(batch, prm, jnp.int16), _plain_t(batch, prm))
+    n, bad = _oracle_mismatches(got, batch[0], batch[1], batch[2], prm)
+    assert n >= 27 and bad == [], bad[:3]
+
+
+@pytest.mark.parametrize("qmax,zdrop", [(33, 100), (160, 100), (160, 0),
+                                        (300, 100)])
+def test_i16_fused_hard_cases(qmax, zdrop):
+    batch = gate.hard_fused_batch(11, qmax, blk_l=BLK)
+    prm = _prm(zdrop=zdrop)
+    got = _plain(batch, prm, torch.int16)
+    _all_equal(got, _pallas(batch, prm, jnp.int16), _plain(batch, prm))
+    n, bad = _oracle_mismatches(got, batch[0], batch[1], batch[4], prm)
+    assert n >= 27 and bad == [], bad[:3]
+
+
+def _edge_batch(qmax, h0):
+    """Lanes whose target starts with the query itself, so the score
+    climbs to h0 + a*qmax."""
+    rng = np.random.default_rng(2)
+    q = rng.integers(0, 4, (qmax, BLK)).astype(np.int8)
+    t = np.concatenate([q, rng.integers(0, 4, (32, BLK)).astype(np.int8)])
+    scal = np.zeros((8, BLK), np.int32)
+    scal[0], scal[1], scal[2], scal[3] = qmax, qmax + 32, 100, h0
+    return q, t, scal, np.array([qmax + 32], np.int32)
+
+
+def test_i16_edge_of_range_is_exact():
+    """a = b = 127 in a 128-column window with h0 = 127: the score reaches
+    2^14 - 1, the top of the range, and the 16-bit cells still agree with
+    the 32-bit ones and with the Pallas kernel at jnp.int16."""
+    batch = _edge_batch(128, 127)
+    prm = _prm(a=127, b=127, o_del=60, e_del=9, o_ins=70, e_ins=11)
+    extend_cuda.check_i16_range(prm, 128, 160)
+    want = _plain_t(batch, prm)
+    assert want[0].max() == (1 << 14) - 1
+    _all_equal(_plain_t(batch, prm, torch.int16), want,
+               _pallas_t(batch, prm, jnp.int16))
+
+
+@pytest.mark.parametrize("prm,qmax,tmax,why", [
+    (_prm(a=127, b=127), 160, 192, "a\\*qmax"),
+    (_prm(e_ins=17), 1024, 64, "e_ins"),
+    (_prm(o_ins=1 << 14), 64, 64, "open \\+ extend"),
+    (_prm(e_del=100), 64, 192, "e_del"),
+    (_prm(e_del=61, e_ins=61), 160, 192, "max\\(e_del, e_ins\\)"),
+    (_prm(zdrop=1 << 15), 64, 64, "zdrop"),
+    (_prm(), 64, 8200, "target window"),
+    (_prm(o_del=-1), 64, 64, "negative"),
+])
+def test_i16_wrapper_refuses_outside_the_range(prm, qmax, tmax, why):
+    """Just outside the stated range the wrappers raise (from host data:
+    shapes and penalties), and the 32-bit path takes the same call."""
+    with pytest.raises(ValueError, match=why):
+        extend_cuda.check_i16_range(prm, qmax, tmax)
+    q = torch.zeros((qmax, BLK), dtype=torch.int8)
+    t = torch.zeros((tmax, BLK), dtype=torch.int8)
+    scal = torch.zeros((8, BLK), dtype=torch.int32)
+    with pytest.raises(ValueError, match="16-bit"):
+        extend_cuda.extend_batch_raw_t(q, t, scal, None, prm,
+                                       compute_dtype=torch.int16)
+    scal16 = torch.zeros((16, BLK), dtype=torch.int32)
+    with pytest.raises(ValueError, match="16-bit"):
+        extend_cuda.extend_batch_raw_fused(q, t, q, t, scal16, None, prm,
+                                           compute_dtype=torch.int16)
+    if prm[2] >= 0 and tmax < 1000:
+        extend_cuda.extend_batch_raw_t(q, t, scal, None, prm)
+
+
+def test_compute_dtype_must_be_int32_or_int16():
+    q = torch.zeros((16, BLK), dtype=torch.int8)
+    scal = torch.zeros((8, BLK), dtype=torch.int32)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        extend_cuda.extend_batch_raw_t(q, q, scal, None, _prm(),
+                                       compute_dtype=torch.int64)
+
+
+def test_i16_host_half_matches_i32():
+    """ops/extend.make_raw_backend hands compute_dtype down: the Python
+    host's backend with 16-bit cells gives the 32-bit ExtendOut."""
+    q, qlen, t, tlen, w, h0, _, _ = _tasks(6, 2 * BLK, 40, 80)
+    p = types.params_from_jax(ExtendParams(
+        mat_flat=jnp.asarray(build_mat(1, 4).astype(np.int32).ravel()),
+        m=5, o_del=6, e_del=1, o_ins=6, e_ins=1, zdrop=100))
+    outs = [extend.make_raw_backend(p, torch.device("cpu"), blk_l=BLK,
+                                    compute_dtype=dt)(q, qlen, t, tlen, w, h0)
+            for dt in (torch.int32, torch.int16)]
+    for f in types.ExtendOut._fields:
+        assert np.array_equal(getattr(outs[0], f), getattr(outs[1], f)), f
+
+
+def _lane_outside(factory, field):
+    """A backend of `factory` with 16-bit cells and a call whose lane 3
+    is outside the per-lane range in `field` (h0 too high for a*qmax, or
+    a band of 2^14); the rest of the batch is inside it."""
+    from bwamem_tpu_torch.pipeline import native_driver
+
+    p = types.params_from_jax(ExtendParams(
+        mat_flat=jnp.asarray(build_mat(1, 4).astype(np.int32).ravel()),
+        m=5, o_del=6, e_del=1, o_ins=6, e_ins=1, zdrop=100))
+    kw = dict(blk_l=BLK, compute_dtype=torch.int16)
+    cpu = torch.device("cpu")
+    bad = (1 << 14) - 40 if field == "h0" else 1 << 14
+    if factory == "raw":
+        q, qlen, t, tlen, w, h0, _, _ = _tasks(6, BLK, 40, 80)
+        args = [q, qlen, t, tlen, np.array(w), np.array(h0)]
+        args[5 if field == "h0" else 4][3] = bad
+        return extend.make_raw_backend(p, cpu, **kw), args
+    if factory == "raw_t":
+        q, t, scal, tmax = gate.random_t_batch(8, BLK, 40, 80, blk_l=BLK)
+        scal[3 if field == "h0" else 2, 3] = bad
+        return native_driver.make_raw_t_backend(p, cpu, **kw), [q, t, scal,
+                                                                tmax]
+    batch = list(gate.random_fused_batch(8, BLK, (24, 48, 24, 48),
+                                         blk_l=BLK))
+    # the fused bound counts both windows: 2^14 - 40 is inside for either
+    # window alone (a*24) and outside for the two together (a*48)
+    batch[4][3 if field == "h0" else 8, 3] = bad
+    return native_driver.make_fused_backend(p, cpu, **kw), batch
+
+
+@pytest.mark.parametrize("field", ["h0", "band"])
+@pytest.mark.parametrize("factory", ["raw", "raw_t", "fused"])
+def test_i16_backends_refuse_a_lane_outside_the_range(factory, field):
+    """The three backend factories that hold the scalar block on the host
+    check the data half of the 16-bit range there (h0 + a*qmax < 2^14,
+    0 <= band < 2^14) and raise instead of returning a saturated score;
+    the same call passes once the lane is back inside."""
+    fn, args = _lane_outside(factory, field)
+    with pytest.raises(ValueError, match="16-bit"):
+        fn(*args)
+    fn2, good = _lane_outside(factory, field)
+    for x in good:
+        x[x >= (1 << 14) - 40] = 7
+    fn2(*good)

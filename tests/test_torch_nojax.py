@@ -4,7 +4,10 @@ installs an import hook that refuses jax, jaxlib and bwamem_tpu, imports
 every module of the port and aligns one single-end chunk through the
 native host pipeline with the port's plain backend on the CPU; a second
 one runs `mem` SE and PE through the Python host and through the
-four-pass protocol."""
+four-pass protocol; a third runs `mem --device-rescue --device-cigar` (from
+the resident reference and with --ship-ref, and --host python
+--device-cigar) on pairs that need rescue and reads with indels, and reads
+the waves and rounds off the trace."""
 
 import os
 import subprocess
@@ -116,6 +119,73 @@ print("NOJAX_CLI_OK")
 """
 
 
+# `mem` with the device rescue and device CIGAR protocols on pairs of
+# which some mates lie on the wrong strand and some reads carry an indel
+_DEVICE_SCRIPT = _NOJAX + r"""
+import collections
+import contextlib
+import io
+import json
+import os
+import tempfile
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+
+from bwamem_tpu_torch.__main__ import main
+
+tmp = tempfile.mkdtemp()
+rng = np.random.default_rng(9)
+acgt = np.array(list("ACGT"))
+genome = rng.integers(0, 4, 30000)
+fa = os.path.join(tmp, "ref.fa")
+with open(fa, "w") as f:
+    f.write(">c\n" + "".join(acgt[genome]) + "\n")
+fq = [os.path.join(tmp, f"r{k}.fq") for k in (1, 2)]
+with open(fq[0], "w") as f1, open(fq[1], "w") as f2:
+    for i in range(40):
+        p = int(rng.integers(0, 29500))
+        a = genome[p:p + 100]
+        if i % 3 == 0:
+            a = np.concatenate([a[:40], a[43:]])
+        b = 3 - genome[p + 250:p + 350][::-1]
+        if i % 5 == 1:
+            b = 3 - b[::-1]
+        for f, r in ((f1, a), (f2, b)):
+            f.write(f"@p{i}\n{''.join(acgt[r])}\n+\n{'I' * len(r)}\n")
+
+
+def run(argv):
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    assert rc == 0, err.getvalue()[-2000:]
+    return [l for l in out.getvalue().splitlines() if not l.startswith("@PG")]
+
+
+run(["index", fa])
+want = run(["mem", "--backend", "torch", "-b", "64", fa, *fq])
+assert any("D" in l.split("\t")[5] for l in want if l[0] != "@")
+for flags in ([], ["--ship-ref"]):
+    trace = os.path.join(tmp, "trace%d.jsonl" % len(flags))
+    got = run(["mem", "--backend", "torch", "--device-rescue",
+               "--device-cigar", *flags, "--trace", trace, "-b", "64", fa,
+               *fq])
+    assert got == want, flags
+    with open(trace) as f:
+        kinds = collections.Counter(
+            json.loads(l)["kind"].rstrip("0123456789") for l in f)
+    assert kinds["rescue_w"] > 0 and kinds["cigar_r"] > 0, kinds
+se = run(["mem", "--backend", "torch", "-b", "64", fa, fq[0]])
+assert run(["mem", "--backend", "torch", "--host", "python", "--device-cigar",
+            "-b", "64", fa, fq[0]]) == se
+assert_none_loaded()
+print("NOJAX_DEVICE_OK")
+"""
+
+
 def _run_blocked(script, token):
     env = dict(os.environ)
     env["PYTHONPATH"] = (os.path.dirname(os.path.dirname(
@@ -139,3 +209,13 @@ def test_python_host_and_phased_run_with_jax_blocked():
     (`--phased`) reach neither JAX nor the JAX package: the port
     carries its own drivers."""
     _run_blocked(_CLI_SCRIPT, "NOJAX_CLI_OK")
+
+
+@pytest.mark.skipif(not native_driver.available(),
+                    reason="native library unavailable")
+def test_device_rescue_and_cigar_run_with_jax_blocked():
+    """`--device-rescue` and `--device-cigar` (resident reference and
+    --ship-ref; --host python --device-cigar) reach neither JAX nor the JAX
+    package, give the SAM of the host paths, and their waves and rounds
+    really run."""
+    _run_blocked(_DEVICE_SCRIPT, "NOJAX_DEVICE_OK")

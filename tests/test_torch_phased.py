@@ -146,12 +146,41 @@ def test_python_host_align_pairs_identical(world):
         _lines(want)
 
 
-def test_python_host_refuses_device_cigar(world):
+def test_python_host_refuses_device_cigar(world, monkeypatch):
+    """The Python host no longer refuses `device_cigar` (the name is from
+    when it did): align_batch(device_cigar=True) runs the reg2aln global
+    realignments through ops/global_torch and gives the SAM of the
+    reference's align_batch(device_cigar=True) and of the host CIGAR
+    path, with at least one batched round of real tasks."""
+    from bwamem_tpu_torch.ops import global_torch
+
+    opt = MemOptions()
     ref, fm, po, rng = world
-    reads, _, _ = make_reads(rng, ref, 2)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        driver.align_batch(MemOptions(), ref, fm, reads, lambda *a: None,
-                           po=po, device_cigar=True)
+    reads, names, quals = make_reads(rng, ref, 30)
+    fn = extend.make_raw_backend(_params(opt)[1], CPU, blk_l=BLK)
+    host = driver.align_batch(opt, ref, fm, reads, fn, names=names,
+                              quals=quals, po=po)
+    rounds = []
+    real = global_torch.ksw_global_batch
+
+    def counting(tasks, *a, **kw):
+        rounds.append(len(tasks))
+        return real(tasks, *a, **kw)
+
+    monkeypatch.setattr(global_torch, "ksw_global_batch", counting)
+    with pytest.raises(ValueError, match="device="):
+        driver.align_batch(opt, ref, fm, reads, fn, names=names,
+                           quals=quals, po=po, device_cigar=True)
+    got = driver.align_batch(opt, ref, fm, reads, fn, names=names,
+                             quals=quals, po=po, device_cigar=True,
+                             device=CPU)
+    assert rounds and max(rounds) > 0, "no CIGAR round fired"
+    want = ref_driver.align_batch(opt, ref, fm, reads, _jax_twin(opt),
+                                  names=names, quals=quals, po=po,
+                                  device_cigar=True)
+    assert _lines(got) == _lines(want) == _lines(host)
+    assert any("I" in r.line().split("\t")[5] or "D" in r.line().split(
+        "\t")[5] for rr in got for r in rr)
 
 
 def test_raw_t_backend_concurrent_calls():

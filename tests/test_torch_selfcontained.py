@@ -6,9 +6,11 @@ package (bwamem_tpu), at import time or at call time.
   level or nested;
 - by running: a subprocess whose import machinery refuses the three
   builds an index and runs `mem --backend torch` SE and PE through the
-  default (resident), `--phased`, `--ship-ref` and `--host python` paths;
-  each SAM is byte-identical (apart from @PG) to `python -m bwamem_tpu mem
-  --backend jax` on the same files and the same (port-built) index;
+  default (resident), `--phased`, `--ship-ref` and `--host python` paths,
+  and with `--device-rescue --device-cigar` from the resident reference
+  and from shipped windows; each SAM is byte-identical (apart from @PG)
+  to `python -m bwamem_tpu mem --backend jax` with the same device flags
+  on the same files and the same (port-built) index;
 - the index cache file has one format: built by either package it holds
   the same arrays and loads in the other;
 - the C++ host library is built under bwamem_tpu_torch/build/ and the run
@@ -56,7 +58,10 @@ def assert_none_loaded():
 """
 
 PATHS = {"resident": [], "phased": ["--phased"], "ship_ref": ["--ship-ref"],
-         "python_host": ["--host", "python"]}
+         "python_host": ["--host", "python"],
+         "device": ["--device-rescue", "--device-cigar"],
+         "device_ship_ref": ["--ship-ref", "--device-rescue",
+                             "--device-cigar"]}
 
 _RUN_ALL = BLOCK_IMPORTS + r"""
 import contextlib
@@ -180,22 +185,23 @@ def _body(text):
 
 @pytest.fixture(scope="module")
 def jax_sam(run_dir):
-    """The JAX package's SAM body per (host, ends), computed once."""
+    """The JAX package's SAM body per (host, ends, device flags),
+    computed once."""
     tmp, _ = run_dir
     cache = {}
 
-    def get(host, ends):
-        if (host, ends) not in cache:
+    def get(host, ends, flags=()):
+        if (host, ends, flags) not in cache:
             reads = [str(tmp / "r1.fq")] + ([str(tmp / "r2.fq")]
                                             if ends == "PE" else [])
             r = subprocess.run(
                 [sys.executable, "-m", "bwamem_tpu", "mem", "--backend",
-                 "jax", "--host", host, "-b", "16", str(tmp / "ref.fa"),
-                 *reads], env=_env(), capture_output=True, text=True,
-                timeout=900)
+                 "jax", "--host", host, *flags, "-b", "16",
+                 str(tmp / "ref.fa"), *reads], env=_env(),
+                capture_output=True, text=True, timeout=900)
             assert r.returncode == 0, r.stderr[-3000:]
-            cache[host, ends] = _body(r.stdout)
-        return cache[host, ends]
+            cache[host, ends, flags] = _body(r.stdout)
+        return cache[host, ends, flags]
 
     return get
 
@@ -205,7 +211,8 @@ def jax_sam(run_dir):
 def test_blocked_run_matches_jax_package(run_dir, jax_sam, path, ends):
     tmp, _ = run_dir
     got = _body((tmp / f"{path}_{ends}.sam").read_text())
-    want = jax_sam("python" if path == "python_host" else "native", ends)
+    want = jax_sam("python" if path == "python_host" else "native", ends,
+                   tuple(f for f in PATHS[path] if f.startswith("--device")))
     recs = [l for l in want if not l.startswith("@")]
     assert len(recs) >= (48 if ends == "PE" else 24)
     assert sum(not int(l.split("\t")[1]) & 4 for l in recs) >= len(recs) - 2

@@ -5,7 +5,7 @@ NVIDIA GPU.
   python -m bwamem_tpu_torch mem [-t N] [-b BATCH] [--inflight N] \
          [--backend cuda|torch|scalar] [--host auto|native|python] \
          [--phased | --ship-ref] [--device-rescue] [--device-cigar] \
-         ref.fa reads.fq [mates.fq] > out.sam
+         [--device-seed] ref.fa reads.fq [mates.fq] > out.sam
   python -m bwamem_tpu_torch merge out.sam shard0.sam shard1.sam ...
 
 `index` and `merge` run no device code; the index cache file keeps the
@@ -23,8 +23,11 @@ path on the device, `--device-cigar` the banded global realignments that
 give the CIGARs (native host, SE and PE; Python host, SE): from the
 device-resident reference, or with `--ship-ref` from windows the host
 ships.  There is no fallback between hosts: the native host exits 1 when
-its C++ library is unavailable.  Options whose device paths are not
-ported yet exit non-zero and name the ROADMAP item that ports them.
+its C++ library is unavailable.  `--device-seed` (native host) runs the
+SMEM search and the SA walks of every chunk on the device: the CUDA
+kernels with `--backend cuda`, their plain versions on the CPU with
+`--backend torch`.  The JAX package's backend names (`jax`, `pallas`)
+exit non-zero and name the port's counterparts.
 """
 
 from __future__ import annotations
@@ -35,11 +38,6 @@ import sys
 
 import numpy as np
 
-# option (as argparse dest) -> why it is refused; each names its item
-# in ROADMAP.md "Open items"
-_NOT_PORTED = {
-    "device_seed": "--device-seed is ROADMAP Queue 1 item 10",
-}
 # the JAX package's device backends -> the port's counterparts
 _BACKEND_COUNTERPART = {"jax": "torch", "pallas": "cuda"}
 
@@ -51,9 +49,6 @@ def not_ported(args) -> str | None:
                 f"port's counterpart is --backend "
                 f"{_BACKEND_COUNTERPART[args.backend]} (ROADMAP Queue 1 "
                 f"item 4)")
-    for dest, why in _NOT_PORTED.items():
-        if getattr(args, dest):
-            return f"{why}; not ported yet"
     return None
 
 
@@ -263,6 +258,25 @@ def cmd_mem(args) -> int:
         sys.stderr.write(f"[mem] {e}\n")
         return 1
     po = pack_occ(fm)
+    seed_fn = None
+    if args.device_seed:
+        if on_python:
+            sys.stderr.write("[mem] --device-seed needs the native host "
+                             "and a device backend; ignored here\n")
+        elif po.n_rows >= 1 << 31:
+            sys.stderr.write("[mem] --device-seed: reference too large "
+                             "for int32 device positions; using host "
+                             "seeding\n")
+        elif args.backend == "cuda":
+            from bwamem_tpu_torch.device import resolve
+            from bwamem_tpu_torch.ops import smem_cuda
+
+            seed_fn = smem_cuda.make_device_seeder(po, fm, opt,
+                                                   resolve("cuda"))
+        else:
+            from bwamem_tpu_torch.ops import smem_torch
+
+            seed_fn = smem_torch.make_device_seeder(po, fm, opt, "cpu")
     chunks = None
     pair_iter = None
     if args.p and not args.mates:
@@ -332,8 +346,9 @@ def cmd_mem(args) -> int:
     pipes = [] if on_python else [native_driver.NativePipeline(
         opt, ref, fm, po, nthreads=args.t, tracer=tracer,
         bucket_split=args.bucket_split) for _ in range(depth)]
-    if rg_id:
-        for p_ in pipes:
+    for p_ in pipes:
+        p_.seed_fn = seed_fn
+        if rg_id:
             p_.set_rg(rg_id)
     n_rec = 0
     n_reads = 0
@@ -484,6 +499,13 @@ def cmd_mem(args) -> int:
             f"[mem] align: {n_reads} reads in {t_align:.3f}s = "
             f"{rate:.1f} reads/s (steady {sr:.1f} reads/s over last "
             f"{sn} reads)\n")
+    if seed_fn is not None and args.v >= 1:
+        c = seed_fn.stats.counts
+        sys.stderr.write(
+            f"[mem] device seeding: {c['chunks']} chunks, {c['reads']} "
+            f"reads, {c['split_rounds']} re-seed rounds ({c['split_jobs']} "
+            f"jobs); exact host search for {c['ovf_reads']} reads and "
+            f"{c['ovf_jobs']} re-seed jobs (slot overflow)\n")
     if tracer is not None:
         import json
 
@@ -591,7 +613,9 @@ def build_parser() -> argparse.ArgumentParser:
                      help="run the mate-rescue local alignments of the "
                           "native PE path on the device")
     mem.add_argument("--device-seed", action="store_true",
-                     help="SMEM seeding on device (not ported)")
+                     help="native host: the SMEM search and the SA "
+                          "walks of every chunk on the device (references "
+                          "below 2^31 index rows; host seeding above)")
     mem.add_argument("--shard", default=None, metavar="K/N",
                      help="multi-host scale-out: align only the strided "
                           "shard K of N (reads K, K+N, K+2N, ...); one "

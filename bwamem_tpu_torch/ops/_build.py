@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-The sources in bwamem_tpu_torch/csrc/*.cu have a plain C interface and
-share the device code of csrc/*.cuh.  At first use each source is
+The sources in bwamem_tpu_torch/csrc/*.cu (the extension kernels and the
+seeding kernels of fm_seed.cu) have a plain C interface and include the
+device code of csrc/*.cuh.  At first use each source is
 compiled by hand with nvcc for sm_90a, all at once (one nvcc process per
 source), and the objects are linked into one shared library under
 bwamem_tpu_torch/build/ (named by a hash of the sources and headers, so
@@ -58,8 +59,20 @@ def _bind(lib: ctypes.CDLL) -> None:
     for fn in (lib.bwt_extend_t, lib.bwt_extend_t_i16):
         fn.restype = i32
         fn.argtypes = [vp, i32, vp, i32, vp, i64] + [i32] * 7 + [vp, vp]
+    bind_seed(lib)
     lib.bwt_error_string.restype = ctypes.c_char_p
     lib.bwt_error_string.argtypes = [i32]
+
+
+def bind_seed(lib: ctypes.CDLL) -> None:
+    """The launchers of csrc/fm_seed.cu (also built by the tests with g++)."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    tables = [vp, vp, vp, vp, i64, i64]      # occ, pk, va, C, primary, n_rows
+    lib.bwt_smem_all.argtypes = tables + [vp, i32, vp, i64, i64, vp, vp]
+    lib.bwt_smem1.argtypes = tables + [vp, i32, vp, vp, vp, vp, i64, vp, vp]
+    lib.bwt_sa.argtypes = tables + [vp, i64, i64, vp, i64, i64, vp, vp]
+    for fn in (lib.bwt_smem_all, lib.bwt_smem1, lib.bwt_sa):
+        fn.restype = i32
 
 
 def _run(procs) -> str:

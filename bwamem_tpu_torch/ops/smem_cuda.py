@@ -1,0 +1,156 @@
+"""The seeding kernels on the card: wrappers of csrc/fm_seed.cu, and the
+kernel seeder of `mem --backend cuda --device-seed`.
+
+`smem_all`, `smem1` and `sa` dispatch on the tensors' device.  On the CPU
+they run the plain PyTorch versions (ops/smem_torch.py); on a CUDA device
+they launch the hand-written kernel (bwt_smem_all, bwt_smem1, bwt_sa) or
+raise: there is no fallback.  `launches` counts kernel launches per
+kernel (the CPU path does not count).
+
+The seeder runs smem_torch's host flow over the kernels: per chunk one
+H2D copy of the (B, L) uint8 reads, one bwt_smem_all launch and one D2H
+copy of its packed rows, one bwt_smem1 launch a split re-seed round, one
+bwt_sa launch over all seed rows.  Reads and re-seed jobs whose slots
+overflowed take the exact scalar search on the host (index/fmindex.smem1),
+the algorithm's own overflow path as in the JAX package; `seed_fn.stats`
+counts them."""
+
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+import torch
+
+from bwamem_tpu_torch.ops import smem_torch
+from bwamem_tpu_torch.ops.smem_torch import ALL_COLS, SMEM1_COLS, DeviceOcc
+
+launches = {"bwt_smem_all": 0, "bwt_smem1": 0, "bwt_sa": 0}
+_count_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    with _count_lock:
+        for k in launches:
+            launches[k] = 0
+
+
+def _device(d: DeviceOcc, *xs):
+    """The tensors' device when it is a CUDA device, None for the CPU;
+    raises unless d's tables and every tensor lie on one device."""
+    dev = xs[0].device
+    for x in xs:
+        if x.device != dev or d.device != dev:
+            raise ValueError(f"tables on {d.device}, tensors on "
+                             f"{[str(y.device) for y in xs]}")
+    if dev.type == "cpu":
+        return None
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _check(name, x, dtype, shape):
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: dtype {x.dtype}, want {dtype}")
+    if tuple(x.shape) != tuple(shape) or not x.is_contiguous():
+        raise ValueError(f"{name}: shape {tuple(x.shape)}, want a "
+                         f"contiguous {tuple(shape)}")
+
+
+def _launch(name, dev, d: DeviceOcc, *args) -> None:
+    """Launch `name` of the kernel library on dev's current stream over
+    d's tables; raise if the launch failed, count it if not."""
+    from bwamem_tpu_torch.ops import _build
+
+    kl = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(kl.lib, name)(
+            d.occ.data_ptr(), d.pk.data_ptr(), d.va.data_ptr(),
+            d.C.data_ptr(), d.primary, d.n_rows, *args, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{name} launch failed: {kl.lib.bwt_error_string(rc)}")
+    with _count_lock:
+        launches[name] += 1
+
+
+def smem_all(d: DeviceOcc, q, qlen, min_seed_len: int):
+    """The first SMEM round of every read (smem_torch.smem_all): q (B, L)
+    uint8 codes, qlen (B,) int64; returns (B, ALL_COLS) int64."""
+    dev = _device(d, q, qlen)
+    if dev is None:
+        return smem_torch.smem_all(d, q, qlen, min_seed_len)
+    B, L = q.shape
+    _check("q", q, torch.uint8, (B, L))
+    _check("qlen", qlen, torch.int64, (B,))
+    out = torch.empty((B, ALL_COLS), dtype=torch.int64, device=dev)
+    if B:
+        _launch("bwt_smem_all", dev, d, q.data_ptr(), L, qlen.data_ptr(), B,
+                int(min_seed_len), out.data_ptr())
+    return out
+
+
+def smem1(d: DeviceOcc, q, qlen, x, min_intv, mask):
+    """One bwt_smem1 call a read (smem_torch.smem1) at x where mask is
+    set, at x = qlen (nothing) where not: q (B, L) uint8, qlen / x /
+    min_intv (B,) int64, mask (B,) uint8.  Returns smem_torch.pack_smem1's
+    (B, SMEM1_COLS) int64 layout."""
+    dev = _device(d, q, qlen, x, min_intv, mask)
+    if dev is None:
+        return smem_torch.pack_smem1(smem_torch.smem1(
+            d, q, qlen, torch.where(mask.bool(), x, qlen), min_intv))
+    B, L = q.shape
+    _check("q", q, torch.uint8, (B, L))
+    for name, t in (("qlen", qlen), ("x", x), ("min_intv", min_intv)):
+        _check(name, t, torch.int64, (B,))
+    _check("mask", mask, torch.uint8, (B,))
+    out = torch.empty((B, SMEM1_COLS), dtype=torch.int64, device=dev)
+    if B:
+        _launch("bwt_smem1", dev, d, q.data_ptr(), L, qlen.data_ptr(),
+                x.data_ptr(), min_intv.data_ptr(), mask.data_ptr(), B,
+                out.data_ptr())
+    return out
+
+
+def sa(d: DeviceOcc, ssa, sa_intv: int, rows):
+    """Text positions of SA rows (smem_torch.sa_batch): ssa (n_ssa,) and
+    rows (n,) int64; returns (n,) int64."""
+    dev = _device(d, ssa, rows)
+    if dev is None:
+        return smem_torch.sa_batch(d, ssa, sa_intv, rows)
+    _check("ssa", ssa, torch.int64, (ssa.shape[0],))
+    _check("rows", rows, torch.int64, (rows.shape[0],))
+    n = rows.shape[0]
+    out = torch.empty(n, dtype=torch.int64, device=dev)
+    if n:
+        _launch("bwt_sa", dev, d, ssa.data_ptr(), ssa.shape[0], int(sa_intv),
+                rows.data_ptr(), n, min(d.n_rows + 1, (1 << 31) - 1),
+                out.data_ptr())
+    return out
+
+
+class Programs(smem_torch.Programs):
+    """smem_torch's host flow over the wrappers above."""
+
+    def _put(self, a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.d.device)
+
+    def all_fn(self, q, qlen, msl):
+        return smem_all(self.d, q, qlen, msl).cpu().numpy()
+
+    def smem1_fn(self, q, qlen, x, min_intv, mask):
+        return smem1(self.d, q, qlen, self._put(x), self._put(min_intv),
+                     self._put(mask.astype(np.uint8))).cpu().numpy()
+
+    def sa_fn(self, rows):
+        return sa(self.d, self.ssa, self.sa_intv, self._put(rows)).cpu(
+            ).numpy()
+
+
+def make_device_seeder(po, fm, opt, device):
+    """The kernel seeder on `device` (a CUDA device; the CPU runs the plain
+    versions): tables copied there once, each call seeds one chunk."""
+    return smem_torch.seeder(
+        Programs(DeviceOcc(po, device), fm.ssa, fm.sa_intv), fm, opt)

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""End-to-end align rates of the four paths of bwamem_tpu_torch at 8x the
-size of chip_smoke.py's run, on a machine with one NVIDIA GPU:
+"""End-to-end align rates of the paths of bwamem_tpu_torch at 8x the size
+of chip_smoke.py's run, on a machine with one NVIDIA GPU:
 
     python3 chip_rates.py
 
 It simulates chip_smoke.py's genome with 262,144 single-end reads and
 65,536 FR pairs, builds the index, and runs `mem --backend cuda -b 2048
 --inflight 3 -t min(cores, 8)` with tracing off through the native
-paths in turns (resident, --phased, --ship-ref, --ship-ref, --phased,
-resident), SE then PE, and once through `--host python` on the first
+paths in turns (resident, --phased, --ship-ref, --device-seed, then the
+same in reverse), SE then PE, and once through `--host python` on the first
 16,384 reads and 8,192 pairs.  It prints each run's `[mem] align:` line
 (the whole-loop and the steady rate) and checks nothing: chip_smoke.py
 holds the paths' output.
@@ -16,9 +16,9 @@ holds the paths' output.
     python3 chip_rates.py --profile
 
 runs instead chip_smoke.py's 32,768 single-end reads once through each
-native path under torch.profiler and prints the wall, the device time
-(all kernels and copies), the extension kernel's share of it and its
-launches.
+native path (--device-seed among them) under torch.profiler and prints
+the wall, the device time (all kernels and copies), the extension and
+seeding kernels' share of it and their launches.
 """
 
 from __future__ import annotations
@@ -32,6 +32,8 @@ import tempfile
 
 SCALE = 8
 PY_SE, PY_PE = 16_384, 8_192
+TURNS = (("resident", []), ("--phased", ["--phased"]),
+         ("--ship-ref", ["--ship-ref"]), ("--device-seed", ["--device-seed"]))
 
 
 def profile(cs, common, fa, se) -> None:
@@ -47,8 +49,7 @@ def profile(cs, common, fa, se) -> None:
 
     with prof(activities=[ProfilerActivity.CUDA]):   # the tracer's start-up
         torch.zeros(1, device="cuda").sum().item()
-    for name, flags in (("resident", []), ("--phased", ["--phased"]),
-                        ("--ship-ref", ["--ship-ref"])):
+    for name, flags in TURNS:
         t0 = time.time()
         with prof(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as p:
@@ -58,11 +59,12 @@ def profile(cs, common, fa, se) -> None:
         rows = [(e.key, dev_us(e), e.count) for e in p.key_averages()
                 if dev_us(e) > 0]
         total = sum(us for _, us, _ in rows)
-        kern = [(k, us, n) for k, us, n in rows if "extend_" in k]
+        kern = [(k, us, n) for k, us, n in rows
+                if re.search(r"extend_|smem|sa_kernel", k)]
         top = sorted(rows, key=lambda r: -r[1])[:6]
         print(f"profile {name}: wall {wall:.3f} s (mem with the profiler "
               f"on), device time {total / 1e3:.3f} ms = "
-              f"{100 * total / 1e6 / wall:.2f}% busy; extension kernels "
+              f"{100 * total / 1e6 / wall:.2f}% busy; kernels "
               f"{[(k[:40], round(us / 1e3, 3), n) for k, us, n in kern]}; "
               f"top {[(k[:40], round(us / 1e3, 3), n) for k, us, n in top]}",
               flush=True)
@@ -104,10 +106,8 @@ def main() -> int:
         if profiling:
             profile(cs, common, fa, se)
             return 0
-        turns = [("resident", []), ("--phased", ["--phased"]),
-                 ("--ship-ref", ["--ship-ref"])]
         for ends, reads in (("SE", [se]), ("PE", [pe1, pe2])):
-            for name, flags in turns + turns[::-1]:
+            for name, flags in TURNS + TURNS[::-1]:
                 rate(f"{ends} {name}", flags, reads)
         sub_se = [cs.head_fastq(se, os.path.join(tmp, "se_py.fq"), PY_SE)]
         sub_pe = [cs.head_fastq(pe1, os.path.join(tmp, "p1_py.fq"), PY_PE),

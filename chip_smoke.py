@@ -6,7 +6,7 @@ Run from the root of the repository on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phases, each of which fails the run (exit code 1, no result line):
-  1. build   the four CUDA kernels from bwamem_tpu_torch/csrc with nvcc
+  1. build   the seven CUDA kernels from bwamem_tpu_torch/csrc with nvcc
              (one process per source, all at once);
   2. kernel  the fused extension kernel, with 32-bit cells (extend_fused)
              and with packed 16-bit cells (extend_fused_i16), each against
@@ -22,31 +22,39 @@ Phases, each of which fails the run (exit code 1, no result line):
              every group width and strip length of the launch table,
              fields 0-5 against the scalar oracle on 96 lanes, and timed
              at bench.py's shape;
-  4. gather  the resident-reference gathers on the GPU against the same
+  4. seed    the seeding kernels (bwt_smem_all, bwt_smem1, bwt_sa) against
+             their plain PyTorch versions on the card, exactly, on 2,048
+             reads over the smoke genome plus a contig made to overflow the
+             slots (homopolymer runs of every length 1..40, a repeated
+             segment; all-N reads, N runs, reads shorter than -k); at least
+             one read must overflow; the kernel seeder's rows against the
+             C++ engine's (collect_seeds_native), values and order; each
+             kernel timed with its bytes bound;
+  5. gather  the resident-reference gathers on the GPU against the same
              gathers on the CPU at their edge cases;
-  5. main    `python -m bwamem_tpu_torch index|mem` (in this process) on
+  6. main    `python -m bwamem_tpu_torch index|mem` (in this process) on
              a simulated 4,641,652 bp genome: 32,768 single-end reads
              and 8,192 FR pairs through `--backend cuda`; mapping
              accuracy, kernel launches == fused dispatches, and the SAM
              of a subset byte-identical to `--backend torch` on the CPU.
              The port's C++ host library builds at the first `mem`, which
              exits non-zero if it cannot;
-  6. phased  the same reads through the four-pass protocol (`--phased`,
+  7. phased  the same reads through the four-pass protocol (`--phased`,
              extend_t launches == the extend_{L,R}{0,1} trace rows) and
-  7. ship-ref through host-shipped windows (`--ship-ref`, extend_fused
+  8. ship-ref through host-shipped windows (`--ship-ref`, extend_fused
              launches == extend_fused trace rows): SAM byte-identical to
-             the resident run of phase 5 over all reads;
-  8. python  the Python host (`--host python --backend cuda`) on the
+             the resident run of phase 6 over all reads;
+  9. python  the Python host (`--host python --backend cuda`) on the
              first 4,096 reads and 2,048 pairs: SAM byte-identical to
              the native resident run on the same files;
-  9. i16     the first 8,192 SE reads through NativePipeline with the
+ 10. i16     the first 8,192 SE reads through NativePipeline with the
              16-bit cell backends (compute_dtype=torch.int16, a library
              argument with no CLI flag): the resident fused backend
              (make_fused_idx_backend) and the four-pass backend
              (make_raw_t_backend); records byte-identical to the
              resident run's, each kernel's launches == its dispatches
              and no other kernel launched;
- 10. pe-dev  a second PE set made for the device protocols (2,048 pairs:
+ 11. pe-dev  a second PE set made for the device protocols (2,048 pairs:
              an eighth of the mates on the wrong strand and an eighth
              substituted every 9 bases, so the seeder cannot place them
              and rescue fires; a quarter of the reads with 1-3 indels of
@@ -57,18 +65,25 @@ Phases, each of which fails the run (exit code 1, no result line):
              the same files (host rescue, host CIGAR), rescue_w* and
              cigar_r* trace rows present where asked for, some CIGAR
              with an I and some with a D;
- 11. dev-fn  the plain PyTorch functions behind a wave and a round
+ 12. dev-seed all SE reads and pairs of phase 6 through `mem --backend cuda
+             --device-seed`: SAM byte-identical to the host-seeded run,
+             bwt_smem_all launches == chunks, bwt_smem1 == re-seed rounds,
+             0 < bwt_sa <= chunks; the rates beside the host-seeded run's
+             and the reads that took the exact host search;
+ 13. dev-fn  the plain PyTorch functions behind a wave and a round
              (local_torch.align6, global_torch.global_batch) once each at
              those runs' largest shapes: GPU == CPU, wall time, Python
              iterations, kernel launches and device time.
 Each path's launch counts are set to 0 just before it and read just
-after.  Each kernel's bound is the larger of its band cells (counted by
-the plain version on this run's inputs) times INT_OPS_PER_CELL over
-PEAK_INT_OPS (with 16-bit cells: two cells an operation) and its bytes
-(inputs read once, outputs written once) over PEAK_BYTES.  The last line
-of standard output is {"ok": true, "device": {...}}.
+after.  Each extension kernel's bound is the larger of its band cells
+(counted by the plain version on this run's inputs) times INT_OPS_PER_CELL
+over PEAK_INT_OPS (with 16-bit cells: two cells an operation) and its
+bytes (inputs read once, outputs written once) over PEAK_BYTES; a seeding
+kernel's is bytes: 48 B a rank4 query and 8 B an LF step (counted by the
+plain version) with its inputs and outputs.  The last line of standard
+output is {"ok": true, "device": {...}}.
 
-`python3 chip_smoke.py --kernels-only` stops after phase 3.
+`python3 chip_smoke.py --kernels-only` stops after phase 4.
 
 This script and everything it loads (the port, tests/_torch_gate.py)
 import neither JAX nor the JAX package; the run fails if either is among
@@ -99,6 +114,7 @@ SUB_SE, SUB_PE = 2_048, 1_024
 PY_SE, PY_PE = 4_096, 2_048        # the Python host's subset (it is slow)
 I16_SE = 8_192                     # reads of the 16-bit resident run
 DEV_PE = 2_048                     # pairs of the device-protocol PE set
+SEED_B = 2048                      # reads of the seeding kernels' gate
 GATE_B = 8192
 GATE_DIMS = (160, 320, 160, 320)   # the main path's (QL, TL, QR, TR)
 WIDE_DIMS = (1024, 64, 1024, 64)   # the widest query window
@@ -155,6 +171,11 @@ def ptxas_summary(log_text):
         if m:
             name = re.sub(r"^_Z\w*?\d+(extend_\w+?_kernel)(?:ILi(\d+)ELi"
                           r"(\d+)E(\w)E)?.*", r"\1<\2,\3,\4>", m.group(1))
+            seed = re.search(r"\d((?:smem_all|smem1|sa)_kernel)", name)
+            name = seed.group(1) if seed else name
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and int(m.group(1)):
+            out.append(f"{name} {m.group(1)} B stack")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and (int(m.group(1)) or int(m.group(2))):
@@ -384,6 +405,133 @@ def phase_kernel_t(dev):
         lambda: extend_torch.extend_t(*args, bounds, prm,
                                       compute_dtype=torch.int16),
         cells[0], args, 8 * scal.shape[1])
+
+
+def seed_bound(stats, n_bytes):
+    """The bytes bound of a seeding kernel in ms: 48 B a rank4 query and
+    8 B more an LF step (counted by the plain version on the timed
+    inputs), plus the inputs read and the outputs written once."""
+    total = (stats.get("rank4", 0) * 48 + stats.get("lf", 0) * 8
+             + n_bytes)
+    return 1e3 * total / PEAK_BYTES, total
+
+
+def phase_seed_kernels(dev):
+    """The seeding kernels (bwt_smem_all, bwt_smem1, bwt_sa) against their
+    plain versions on the card, exactly, on the gate batch over the smoke
+    genome plus the overflow contig; the kernel seeder's rows against the
+    C++ engine's; each kernel timed with its bound."""
+    import torch
+
+    import _torch_gate as gate
+    from bwamem_tpu_torch import native
+    from bwamem_tpu_torch.config import MemOptions
+    from bwamem_tpu_torch.index.build import build_index
+    from bwamem_tpu_torch.index.occ_packed import pack_occ
+    from bwamem_tpu_torch.ops import smem_cuda, smem_torch
+
+    t0 = time.time()
+    genome = np.random.default_rng(0).integers(0, 4, GENOME_BP)  # simulate's
+    rng = np.random.default_rng(5)
+    hp, rep = gate.overflow_contig(rng)
+    fm = build_index(np.concatenate([genome, hp, rep]).astype(np.uint8))
+    po = pack_occ(fm)
+    reads = gate.seed_gate_reads(rng, genome, hp, rep, SEED_B, READ_LEN)
+    B = len(reads)
+    mat, qlen = gate.read_matrix(reads)
+    log(f"seed gate: index of {len(genome) + len(hp) + len(rep)} bp "
+        f"(genome + overflow contig), {B} reads ({time.time() - t0:.1f}s)")
+    opt = MemOptions()
+    d = smem_torch.DeviceOcc(po, dev)
+    q, ql = (torch.from_numpy(a).to(dev) for a in (mat, qlen))
+    timing = {}
+
+    def timed(name, kernel, plain, stats, n_bytes):
+        ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 1)
+        bound_ms, total = seed_bound(stats, n_bytes)
+        log(f"{name}: kernel {ms:.4f} ms, plain PyTorch {plain_ms:.1f} ms "
+            f"(CUDA events); {stats.get('rank4', 0)} rank4 queries, "
+            f"{stats.get('lf', 0)} LF steps, {total} B -> bound "
+            f"{bound_ms:.4f} ms = {100 * bound_ms / ms:.2f}% of the kernel's "
+            f"time (the chain of dependent gathers bounds it)")
+        timing[name] = {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": "bytes",
+                        "library_ms": None}
+
+    # the first round
+    got = smem_cuda.smem_all(d, q, ql, opt.min_seed_len)
+    torch.cuda.synchronize()
+    st = {}
+    want = smem_torch.smem_all(d, q, ql, opt.min_seed_len, st)
+    if not torch.equal(got[:, :2], want[:, :2]):
+        fail("bwt_smem_all: cnt or ovf != plain")
+    ok = want[:, 1] == 0
+    if not torch.equal(got[ok], want[ok]):
+        fail("bwt_smem_all: slots != plain on a read without overflow")
+    n_ovf = int((~ok).sum())
+    if n_ovf < 1:
+        fail("seed gate: no read overflowed its slots")
+    log(f"bwt_smem_all == plain on {B} reads (cnt and ovf everywhere, all "
+        f"{smem_torch.ALL_COLS} columns on {int(ok.sum())} reads without "
+        f"overflow; {n_ovf} reads overflow; {int(want[:, 0].sum())} SMEMs)")
+    timed("bwt_smem_all",
+          lambda: smem_cuda.smem_all(d, q, ql, opt.min_seed_len),
+          lambda: smem_torch.smem_all(d, q, ql, opt.min_seed_len), st,
+          mat.nbytes + qlen.nbytes + 8 * got.numel())
+
+    # one call a read at a random x, min_intv and mask
+    x = rng.integers(0, np.maximum(qlen, 1))
+    x[:2] = 0                                   # the all-A reads
+    mi = rng.choice([1, 2, 5], B)
+    mask = (rng.random(B) < 0.9).astype(np.uint8)
+    x_d, mi_d, mask_d = (torch.from_numpy(a).to(dev) for a in (x, mi, mask))
+    got = smem_cuda.smem1(d, q, ql, x_d, mi_d, mask_d)
+    torch.cuda.synchronize()
+    st = {}
+    x_eff = torch.where(mask_d.bool(), x_d, ql)
+    want = smem_torch.pack_smem1(smem_torch.smem1(d, q, ql, x_eff, mi_d, st))
+    if not torch.equal(got, want):
+        bad = (got != want).nonzero()[:5].tolist()
+        fail(f"bwt_smem1 != plain: first (read, column) {bad}")
+    log(f"bwt_smem1 == plain: all eight outputs of {B} reads "
+        f"({int(want[:, 1].sum())} overflow, {int(want[:, 2].sum())} SMEMs)")
+    timed("bwt_smem1", lambda: smem_cuda.smem1(d, q, ql, x_d, mi_d, mask_d),
+          lambda: smem_torch.smem1(d, q, ql, x_eff, mi_d), st,
+          mat.nbytes + 4 * qlen.nbytes + mask.nbytes + 8 * got.numel())
+
+    # the seeder's rows against the C++ engine's, and the SA walks of
+    # the gate's seeds
+    seed_fn = smem_cuda.make_device_seeder(po, fm, opt, dev)
+    rows = seed_fn(reads)
+    n, want_rows = native.collect_seeds_native(
+        po, fm.ssa, fm.sa_intv, mat, qlen, opt.min_seed_len,
+        smem_torch.split_len_of(opt), opt.split_width, opt.max_occ)
+    if not np.array_equal(rows, want_rows[:n]):
+        fail(f"kernel seeder rows ({len(rows)}) != collect_seeds_native "
+             f"({n})")
+    c = seed_fn.stats.counts
+    log(f"kernel seeder == collect_seeds_native: {n} seed rows, values and "
+        f"order; {c['split_rounds']} re-seed rounds ({c['split_jobs']} "
+        f"jobs); exact host search for {c['ovf_reads']} reads and "
+        f"{c['ovf_jobs']} jobs")
+    progs = smem_cuda.Programs(d, fm.ssa, fm.sa_intv)
+    mems = smem_torch.collect_smems_device(
+        progs, fm, reads, opt.min_seed_len, smem_torch.split_len_of(opt),
+        opt.split_width)
+    _, sa_rows = smem_torch.occurrences(mems, opt.max_occ)
+    r_d = torch.from_numpy(sa_rows).to(dev)
+    got = smem_cuda.sa(d, progs.ssa, fm.sa_intv, r_d)
+    torch.cuda.synchronize()
+    st = {}
+    want = smem_torch.sa_batch(d, progs.ssa, fm.sa_intv, r_d, st)
+    if not torch.equal(got, want) or not np.array_equal(
+            got.cpu().numpy(), rows[:, 1]):
+        fail("bwt_sa != plain or != the C++ engine's positions")
+    log(f"bwt_sa == plain == C++ on the gate's {len(sa_rows)} seed rows")
+    timed("bwt_sa", lambda: smem_cuda.sa(d, progs.ssa, fm.sa_intv, r_d),
+          lambda: smem_torch.sa_batch(d, progs.ssa, fm.sa_intv, r_d), st,
+          16 * len(sa_rows))
+    return timing
 
 
 def phase_gather(dev):
@@ -853,6 +1001,57 @@ def phase_pe_device(tmp, run):
         f"{dict(extend_cuda.launches)}")
 
 
+def phase_device_seed(tmp, run, host_rates):
+    """`mem --backend cuda --device-seed` over all SE reads and pairs: SAM
+    byte-identical to the host-seeded resident run, one bwt_smem_all
+    launch a chunk, one bwt_smem1 launch a re-seed round, at most one
+    bwt_sa launch a chunk, and no other seeding kernel."""
+    from bwamem_tpu_torch.ops import smem_cuda
+
+    rates, seeded = {}, collections.Counter()
+    smem_cuda.reset_launches()
+    for label, reads in run["inputs"].items():
+        sam, _, rates[label], text = run_mem(
+            tmp, f"{label}_seed", run["fa"], reads,
+            ["--backend", "cuda", "--device-seed", *run["common"]])
+        n = same_sam(run["sams"][label], sam, f"{label} --device-seed vs "
+                     f"host seeding")
+        m = re.search(r"\[mem\] device seeding: (\d+) chunks, (\d+) reads, "
+                      r"(\d+) re-seed rounds \((\d+) jobs\); exact host "
+                      r"search for (\d+) reads and (\d+) re-seed jobs", text)
+        if not m:
+            fail(f"{label} --device-seed: no [mem] device seeding: line")
+        c = dict(zip(("chunks", "reads", "rounds", "jobs", "ovf_reads",
+                      "ovf_jobs"), map(int, m.groups())))
+        seeded.update(c)
+        host = {k: trace_sums(os.path.join(tmp, f"{t}.trace.jsonl"))[
+            "host_start"] for k, t in (("host", label),
+                                       ("device", f"{label}_seed"))}
+        log(f"{label} --device-seed SAM byte-identical to host seeding "
+            f"(apart from @PG; {n} lines); {c['chunks']} chunks, "
+            f"{c['rounds']} re-seed rounds, exact host search for "
+            f"{c['ovf_reads']} reads and {c['ovf_jobs']} jobs; chunk starts "
+            f"(seeding, chaining, planning) {host['device'][1]:.3f}s over "
+            f"{host['device'][0]} rows against {host['host'][1]:.3f}s with "
+            f"host seeding")
+    counts = dict(smem_cuda.launches)
+    if (counts["bwt_smem_all"] != seeded["chunks"]
+            or counts["bwt_smem1"] != seeded["rounds"]
+            or not 0 < counts["bwt_sa"] <= seeded["chunks"]):
+        fail(f"--device-seed: seeding launches {counts} against "
+             f"{seeded['chunks']} chunks and {seeded['rounds']} re-seed "
+             f"rounds")
+    log(f"--device-seed: bwt_smem_all launches {counts['bwt_smem_all']} == "
+        f"chunks, bwt_smem1 {counts['bwt_smem1']} == re-seed rounds, bwt_sa "
+        f"{counts['bwt_sa']} <= chunks; {seeded['ovf_reads']} reads and "
+        f"{seeded['ovf_jobs']} re-seed jobs took the exact host search")
+    for label in rates:
+        log(f"--device-seed {label}: {rates[label]:.1f} reads/s against "
+            f"{host_rates[label]:.1f} with host seeding (same reads, "
+            f"--backend cuda, -b 2048 --inflight 3, tracing on)")
+    return counts, rates
+
+
 def phase_device_functions(dev):
     """The device functions of the rescue waves and CIGAR rounds that are
     plain PyTorch (no TPU kernel stands behind them): one call each at
@@ -966,9 +1165,11 @@ def main() -> int:
 
     timing, timing_i16 = phase_kernel(dev)
     timing_t, timing_t_i16 = phase_kernel_t(dev)
+    timing_seed = phase_seed_kernels(dev)
     if "--kernels-only" in sys.argv[1:]:
         print(json.dumps({"kernels": [timing, timing_t, timing_i16,
-                                      timing_t_i16]}), flush=True)
+                                      timing_t_i16, timing_seed]}),
+              flush=True)
         return 0
     phase_gather(dev)
     tmp = tempfile.mkdtemp(prefix="bwamem_smoke_")
@@ -983,11 +1184,12 @@ def main() -> int:
         _, rates_py = phase_python_host(tmp, run)
         launches_i16, launches_t_i16 = phase_i16_path(run, dev)
         phase_pe_device(tmp, run)
+        seed_launches, rates_seed = phase_device_seed(tmp, run, rates)
         phase_device_functions(dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for name, r in (("resident (default)", rates), ("--phased", rates_phased),
-                    ("--ship-ref", rates_ship),
+                    ("--ship-ref", rates_ship), ("--device-seed", rates_seed),
                     (f"--host python ({PY_SE} reads, {PY_PE} pairs)",
                      rates_py)):
         log(f"{name}: SE {r['SE']:.1f} reads/s, PE {r['PE']:.1f} reads/s "
@@ -1008,7 +1210,13 @@ def main() -> int:
          "launches": launches_i16, **timing_i16},
         {"name": "extend_t_i16", "route": "cuda", "source": t_src,
          "replaces": "bwamem_tpu/ops/extend_pallas.py:383",
-         "launches": launches_t_i16, **timing_t_i16}]}), flush=True)
+         "launches": launches_t_i16, **timing_t_i16}]
+        + [{"name": name, "route": "cuda",
+            "source": "bwamem_tpu_torch/csrc/fm_seed.cu",
+            "replaces": f"bwamem_tpu/ops/smem_jax.py:{line}",
+            "launches": seed_launches[name], **timing_seed[name]}
+           for name, line in (("bwt_smem_all", 312), ("bwt_smem1", 130),
+                              ("bwt_sa", 583))]}), flush=True)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "bwamem_tpu"))
     if loaded:

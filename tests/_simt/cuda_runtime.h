@@ -1,8 +1,10 @@
 // A host stand-in for <cuda_runtime.h>, for compiling the port's CUDA
-// pass body (bwamem_tpu_torch/csrc/band_pass.cuh) with g++ and running it
-// on the CPU: see simt_emulate.cpp.  It declares only what that header
-// uses.  The threads of one group run as cooperative fibers of one OS
-// thread; every warp-level primitive is a collective that parks the
+// sources with g++ and running them on the CPU: the pass body
+// (bwamem_tpu_torch/csrc/band_pass.cuh, see simt_emulate.cpp) and the
+// seeding kernels (csrc/fm_seed.cu, whose launchers loop over the grid when
+// they are not compiled by nvcc).  It declares only what those sources
+// use.  The threads of one group of the pass run as cooperative fibers of
+// one OS thread; every warp-level primitive is a collective that parks the
 // calling fiber until the whole group has arrived.
 
 #pragma once
@@ -21,7 +23,7 @@ enum { cudaErrorInvalidValue = 1 };
 struct SimtIdx {
   unsigned x;
 };
-extern SimtIdx threadIdx, blockIdx;
+inline SimtIdx threadIdx, blockIdx, blockDim;
 
 namespace simt {
 // Every fiber of the running group hands in `v`; returns the array of all
@@ -125,5 +127,6 @@ inline unsigned prmt_b32(unsigned x, unsigned y, unsigned s) {
   return out;
 }
 
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int __ffs(unsigned v) { return __builtin_ffs((int)v); }
 inline int __clz(unsigned v) { return v ? __builtin_clz(v) : 32; }

@@ -23,8 +23,6 @@
 
 #include "band_pass.cuh"
 
-SimtIdx threadIdx, blockIdx;
-
 namespace simt {
 
 constexpr int kMaxG = 32;

@@ -2,7 +2,9 @@
 batches that reach every branch of the fused and the per-phase kernel, a
 batch of hard cases built for the cooperating-threads pass (strip edges,
 long gaps, ties, trims), and the check of one pass's fields against the
-scalar bwa-0.7.8 oracle (the port's own numpy `ksw_extend_core`).
+scalar bwa-0.7.8 oracle (the port's own numpy `ksw_extend_core`).  For
+the seeding kernels: a contig made to overflow their slots and a read
+batch over it.
 Shared by the tests of the port and chip_smoke.py (which puts this
 directory on sys.path); imports numpy and the port only."""
 
@@ -267,3 +269,57 @@ def l0_scalar_mismatches(out, ql, tl, scal, prm, lanes) -> list:
         if got != exp:
             bad.append((i, got, exp))
     return bad
+
+
+def overflow_contig(rng, n_rep=1100):
+    """A contig made to overflow the seeding slots: runs A^k of every k in
+    1..40, each ended by a random C, G or T (an all-A read then meets more
+    than 24 distinct interval sizes), and a 40 bp segment repeated n_rep
+    times (past -c 500 its occurrences are subsampled).  Returns the two
+    parts as int64 codes."""
+    hp = np.concatenate([np.r_[np.zeros(k, np.int64), rng.integers(1, 4, 1)]
+                         for k in range(1, 41)])
+    return hp, np.tile(rng.integers(0, 4, 40), n_rep)
+
+
+def seed_gate_reads(rng, genome, hp, rep, n, read_len=150):
+    """Reads for the seeding gate over a genome and the overflow contig
+    (hp, rep): all-A reads and reads of the homopolymer runs, 16 reads of
+    the repeat, all-N reads, reads with N runs (interior, at either end,
+    one base, nearly all), reads shorter than -k (1..18 bases), then reads
+    of the genome with 1% substitutions, every other one
+    reverse-complemented, to n reads in all.  int64 codes, N = 4."""
+    L = read_len
+    span = np.arange(L)
+
+    def from_genome(n):
+        pos = rng.integers(0, len(genome) - L, n)
+        R = genome[pos[:, None] + span].astype(np.int64)
+        mut = rng.random(R.shape) < 0.01
+        R[mut] = rng.integers(0, 4, int(mut.sum()))
+        R[1::2] = 3 - R[1::2, ::-1]
+        return list(R)
+
+    reads = [np.zeros(L, np.int64), np.zeros(2 * L // 5, np.int64)]
+    reads += [hp[o:o + L] for o in range(0, len(hp) - L, 97)]
+    reads += [rep[o:o + L] for o in rng.integers(0, len(rep) - L, 16)]
+    reads += [np.full(L, 4, np.int64), np.full(L // 4, 4, np.int64)]
+    runs = ((4 * L // 15, 7 * L // 15), (4 * L // 5, L), (0, L // 15),
+            (L // 2, L // 2 + 1), (L // 15, 14 * L // 15), (1, L - 1))
+    for r, (a, b) in zip(from_genome(len(runs)), runs):
+        r[a:b] = 4
+        reads.append(r)
+    reads += [g[:k] for g, k in zip(from_genome(18), range(1, 19))]
+    if n < len(reads):
+        raise ValueError(f"{n} reads asked for, {len(reads)} made to order")
+    return reads + from_genome(n - len(reads))
+
+
+def read_matrix(reads):
+    """(B, L) uint8 codes padded with 4 and (B,) int64 lengths."""
+    qlen = np.array([len(r) for r in reads], np.int64)
+    mat = np.full((len(reads), max(int(qlen.max(initial=0)), 1)), 4,
+                  np.uint8)
+    for b, r in enumerate(reads):
+        mat[b, :len(r)] = r
+    return mat, qlen

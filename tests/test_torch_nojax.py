@@ -2,7 +2,8 @@
 subprocess (this test process has JAX loaded through tests/conftest.py)
 installs an import hook that refuses jax, jaxlib and bwamem_tpu, imports
 every module of the port and aligns one single-end chunk through the
-native host pipeline with the port's plain backend on the CPU; a second
+native host pipeline with the port's plain backend on the CPU, seeded by
+the C++ engine and by the plain device seeder (--device-seed); a second
 one runs `mem` SE and PE through the Python host and through the
 four-pass protocol; a third runs `mem --device-rescue --device-cigar` (from
 the resident reference and with --ship-ref, and --host python
@@ -62,6 +63,12 @@ assert nrec >= 16 and fn.dispatches == 1, (nrec, fn.dispatches)
 mapped = sum(1 for l in text.splitlines()
              if not int(l.split("\t")[1]) & 4)
 assert mapped >= 16, mapped
+# the same chunk seeded by the plain device seeder (--device-seed)
+from bwamem_tpu_torch.ops import smem_torch
+
+pipe.seed_fn = smem_torch.make_device_seeder(po, fm, opt, "cpu")
+assert pipe.align_chunk_text(reads, fn) == (text, nrec)
+assert pipe.seed_fn.stats.counts["split_rounds"] >= 1
 assert_none_loaded()
 print("NOJAX_OK", nrec)
 """

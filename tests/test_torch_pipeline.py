@@ -337,9 +337,9 @@ def test_cli_mem_matches_jax_package(tmp_path):
 
 
 def test_cli_refuses_unported_paths(tmp_path):
-    """Flags whose device paths are not ported exit non-zero naming the
-    ROADMAP item; nothing is silently ignored.  The ported paths are
-    accepted, and the JAX package's backends name their counterparts."""
+    """The JAX package's backend names exit non-zero naming the port's
+    counterparts and the ROADMAP item; nothing is silently ignored.  The
+    ported paths, --device-seed among them, are accepted."""
     from bwamem_tpu_torch.__main__ import (
         bad_combination,
         build_parser,
@@ -353,12 +353,14 @@ def test_cli_refuses_unported_paths(tmp_path):
                   ["--host", "python", "--backend", "cuda"],
                   ["--device-cigar"], ["--device-rescue"],
                   ["--device-cigar", "--device-rescue", "--ship-ref"],
-                  ["--host", "python", "--device-cigar"]):
+                  ["--host", "python", "--device-cigar"],
+                  ["--device-seed"], ["--device-cigar", "--device-seed"],
+                  ["--backend", "torch", "--device-seed", "--phased"],
+                  ["--backend", "scalar", "--device-seed"]):
         args = ap.parse_args(base + extra)
         assert not_ported(args) is None and not bad_combination(args), extra
-    for extra in (["--device-seed"], ["--backend", "jax"],
-                  ["--backend", "pallas"],
-                  ["--device-cigar", "--device-seed"]):
+    for extra in (["--backend", "jax"], ["--backend", "pallas"],
+                  ["--backend", "jax", "--device-seed"]):
         why = not_ported(ap.parse_args(base + extra))
         assert why and "ROADMAP" in why, extra
     assert "--backend torch" in not_ported(
@@ -370,7 +372,7 @@ def test_cli_refuses_unported_paths(tmp_path):
                   ["--backend", "scalar", "--ship-ref"]):
         assert bad_combination(ap.parse_args(base + extra)), extra
     r = subprocess.run([sys.executable, "-m", "bwamem_tpu_torch", "mem",
-                        "--device-seed", str(tmp_path / "x.fa"),
+                        "--backend", "jax", str(tmp_path / "x.fa"),
                         str(tmp_path / "x.fq")], env=_env(),
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0 and "ROADMAP" in r.stderr

@@ -7,8 +7,9 @@ package (bwamem_tpu), at import time or at call time.
 - by running: a subprocess whose import machinery refuses the three
   builds an index and runs `mem --backend torch` SE and PE through the
   default (resident), `--phased`, `--ship-ref` and `--host python` paths,
-  and with `--device-rescue --device-cigar` from the resident reference
-  and from shipped windows; each SAM is byte-identical (apart from @PG)
+  with `--device-rescue --device-cigar` from the resident reference
+  and from shipped windows, and with `--device-seed` (the plain seeder);
+  each SAM is byte-identical (apart from @PG)
   to `python -m bwamem_tpu mem --backend jax` with the same device flags
   on the same files and the same (port-built) index;
 - the index cache file has one format: built by either package it holds
@@ -61,7 +62,8 @@ PATHS = {"resident": [], "phased": ["--phased"], "ship_ref": ["--ship-ref"],
          "python_host": ["--host", "python"],
          "device": ["--device-rescue", "--device-cigar"],
          "device_ship_ref": ["--ship-ref", "--device-rescue",
-                             "--device-cigar"]}
+                             "--device-cigar"],
+         "device_seed": ["--device-seed"]}
 
 _RUN_ALL = BLOCK_IMPORTS + r"""
 import contextlib

@@ -154,22 +154,38 @@ def cmd_merge(args) -> int:
     return 0
 
 
-def make_backends(opt, args, pac, paired):
-    """(extension, rescue, CIGAR) backends that `args` selects, on the GPU
-    (`cuda`) or the CPU (`torch`).  Extension: for the Python host an
-    extend_batch_fn (None for `scalar`); for the native host the callable
-    NativePipeline drives (per-phase with --phased, host-shipped fused
-    with --ship-ref, else resident-reference fused).  Rescue
-    (--device-rescue, native PE) and CIGAR (--device-cigar, native host)
-    are None where the host does that work; with --ship-ref they take
-    windows from the host, else they gather them from the one resident
-    text that every idx backend shares."""
+def mem_device(args):
+    """The torch.device of `mem`'s backends: the CPU for --backend torch
+    or scalar; for --backend cuda the card that LOCAL_RANK names (one
+    process a card under `torchrun`), else the current card.  Raises
+    RuntimeError without a GPU, ValueError when LOCAL_RANK names no
+    visible card."""
     from bwamem_tpu_torch.device import resolve
+
+    if args.backend != "cuda":
+        return resolve("cpu")
+    import torch
+
+    from bwamem_tpu_torch.parallel.multihost import local_cuda_device
+
+    return resolve(local_cuda_device(os.environ.get("LOCAL_RANK"),
+                                     torch.cuda.device_count()))
+
+
+def make_backends(opt, args, pac, paired, device):
+    """(extension, rescue, CIGAR) backends that `args` selects, on
+    `device`: the GPU (`cuda`) or the CPU (`torch`).  Extension: for the
+    Python host an extend_batch_fn (None for `scalar`); for the native
+    host the callable NativePipeline drives (per-phase with --phased,
+    host-shipped fused with --ship-ref, else resident-reference fused).
+    Rescue (--device-rescue, native PE) and CIGAR (--device-cigar,
+    native host) are None where the host does that work; with --ship-ref
+    they take windows from the host, else they gather them from the one
+    resident text that every idx backend shares."""
     from bwamem_tpu_torch.ops.types import params_from_options
 
     if args.backend == "scalar":
         return None, None, None
-    device = resolve("cuda" if args.backend == "cuda" else "cpu")
     params = params_from_options(opt)
     if python_host(args):
         from bwamem_tpu_torch.ops import extend
@@ -211,6 +227,15 @@ def make_backends(opt, args, pac, paired):
 
 
 def cmd_mem(args) -> int:
+    from bwamem_tpu_torch.parallel import multihost
+
+    try:
+        return _mem(args)
+    finally:
+        multihost.destroy()    # the process group init_distributed joined
+
+
+def _mem(args) -> int:
     import time
 
     from bwamem_tpu_torch.config import MemOptions
@@ -252,9 +277,11 @@ def cmd_mem(args) -> int:
         sys.stderr.write("[mem] --device-rescue applies to the native PE "
                          "path; ignored here\n")
     try:
+        device = mem_device(args)
         ext_fn, rescue_fn, cigar_fn = make_backends(opt, args, ref.pac,
-                                                    paired)
-    except RuntimeError as e:  # e.g. --backend cuda without a GPU
+                                                    paired, device)
+    except (RuntimeError, ValueError) as e:
+        # --backend cuda without a GPU, or LOCAL_RANK beyond the cards
         sys.stderr.write(f"[mem] {e}\n")
         return 1
     po = pack_occ(fm)
@@ -268,15 +295,13 @@ def cmd_mem(args) -> int:
                              "for int32 device positions; using host "
                              "seeding\n")
         elif args.backend == "cuda":
-            from bwamem_tpu_torch.device import resolve
             from bwamem_tpu_torch.ops import smem_cuda
 
-            seed_fn = smem_cuda.make_device_seeder(po, fm, opt,
-                                                   resolve("cuda"))
+            seed_fn = smem_cuda.make_device_seeder(po, fm, opt, device)
         else:
             from bwamem_tpu_torch.ops import smem_torch
 
-            seed_fn = smem_torch.make_device_seeder(po, fm, opt, "cpu")
+            seed_fn = smem_torch.make_device_seeder(po, fm, opt, device)
     chunks = None
     pair_iter = None
     if args.p and not args.mates:
@@ -288,25 +313,28 @@ def cmd_mem(args) -> int:
                         iter_fastq_chunks(args.mates, args.b))
     else:
         chunks = iter_fastq_chunks(args.reads, args.b)
+    # each process aligns the strided shard_reads assignment and writes
+    # its own SAM; `merge` restores input order byte-identically.
+    # --shard K/N is explicit; else the torch.distributed environment
+    # (MASTER_ADDR and WORLD_SIZE set, e.g. by torchrun) gives the rank
+    from bwamem_tpu_torch.parallel import multihost
+
     if args.shard:
         shard_id, n_shards = (int(x) for x in args.shard.split("/"))
         if not 0 <= shard_id < n_shards:
             sys.stderr.write(f"[mem] bad --shard {args.shard}\n")
             return 1
-        if n_shards > 1:
-            from bwamem_tpu_torch.parallel.multihost import (
-                shard_chunk_stream,
-                shard_pair_stream,
-            )
-
-            if pair_iter is not None:
-                pair_iter = shard_pair_stream(pair_iter, shard_id,
-                                              n_shards, args.b)
-            else:
-                chunks = shard_chunk_stream(chunks, shard_id, n_shards,
-                                            args.b)
-            sys.stderr.write(f"[mem] shard {shard_id}/{n_shards} "
-                             f"(strided)\n")
+    else:
+        shard_id, n_shards = multihost.init_distributed()
+    if n_shards > 1:
+        if pair_iter is not None:
+            pair_iter = multihost.shard_pair_stream(pair_iter, shard_id,
+                                                    n_shards, args.b)
+        else:
+            chunks = multihost.shard_chunk_stream(chunks, shard_id,
+                                                  n_shards, args.b)
+        sys.stderr.write(f"[mem] shard {shard_id}/{n_shards} "
+                         f"(strided)\n")
     out = sys.stdout
     out.write(sam_header(ref.contigs, rg_line=args.R,
                          pg_cl=" ".join(sys.argv)))
@@ -418,9 +446,6 @@ def cmd_mem(args) -> int:
         from bwamem_tpu_torch.pipeline import align as A
         from bwamem_tpu_torch.pipeline.driver import align_batch
 
-        # the Python host's device CIGAR runs where its extension runs
-        cigar_device = "cuda" if args.backend == "cuda" else "cpu"
-
         def run_chunk(ci, chunk):
             """The chunk's SAM as (text, records) from the native fast
             path, else as per-read record lists."""
@@ -433,7 +458,7 @@ def cmd_mem(args) -> int:
             if on_python:
                 return align_batch(opt, ref, fm, seqs, ext_fn, po=po,
                                    device_cigar=args.device_cigar,
-                                   device=cigar_device, **kw)
+                                   device=device, **kw)
             pipe_ = pipes[ci % len(pipes)]
             if not args.C:
                 return pipe_.align_chunk_text(seqs, ext_fn,
@@ -619,7 +644,12 @@ def build_parser() -> argparse.ArgumentParser:
     mem.add_argument("--shard", default=None, metavar="K/N",
                      help="multi-host scale-out: align only the strided "
                           "shard K of N (reads K, K+N, K+2N, ...); one "
-                          "process per shard, then `merge` the SAMs")
+                          "process per shard, then `merge` the SAMs. "
+                          "Derived from the torch.distributed environment "
+                          "(RANK of WORLD_SIZE, rendezvous at MASTER_ADDR:"
+                          "MASTER_PORT) when MASTER_ADDR and WORLD_SIZE "
+                          "are set and --shard is not; under --backend "
+                          "cuda, LOCAL_RANK picks the process's card")
     mem.set_defaults(fn=cmd_mem)
 
     mg = sub.add_parser(

@@ -151,6 +151,10 @@ class Programs(smem_torch.Programs):
 
 def make_device_seeder(po, fm, opt, device):
     """The kernel seeder on `device` (a CUDA device; the CPU runs the plain
-    versions): tables copied there once, each call seeds one chunk."""
+    versions): tables copied there once, each call seeds one chunk.
+    ValueError for an index of 2^31 rows or more, as the JAX package's
+    seeder raises."""
+    if po.n_rows >= 1 << 31:
+        raise ValueError("device SA lookup requires n_rows < 2^31")
     return smem_torch.seeder(
         Programs(DeviceOcc(po, device), fm.ssa, fm.sa_intv), fm, opt)

@@ -527,6 +527,9 @@ def seeder(progs, fm, opt):
 
 def make_device_seeder(po, fm, opt, device):
     """The plain seeder on `device`: tables copied there once, each call
-    seeds one chunk."""
+    seeds one chunk.  ValueError for an index of 2^31 rows or more, as
+    the JAX package's seeder raises."""
+    if po.n_rows >= 1 << 31:
+        raise ValueError("device SA lookup requires n_rows < 2^31")
     return seeder(Programs(DeviceOcc(po, device), fm.ssa, fm.sa_intv), fm,
                   opt)

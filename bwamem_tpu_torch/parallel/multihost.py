@@ -1,12 +1,15 @@
-"""Scale-out across processes: read sharding and ordered output (the
-counterpart of bwamem_tpu/parallel/multihost.py without its
-`init_distributed`; deriving the shard from a process group is the
-multi-GPU slice's work, `--shard K/N` is explicit here).
+"""Scale-out across processes: read sharding, the shard from the
+torch.distributed environment, and ordered output (the counterpart of
+bwamem_tpu/parallel/multihost.py).
 
 The index is replicated per process and read batches stream
 data-parallel: a read's whole lifecycle (seeds, chains, extension, mate)
-stays in one process, so the only traffic between processes is the final
-SAM merge.
+stays in one process, so the only traffic between processes is the
+rendezvous at the start and the final SAM merge.  `mem --shard K/N`
+names a process's shard; without it, `init_distributed` derives the
+shard from the environment that `torchrun` (or a launcher that sets
+RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT) gives each process, and
+`local_cuda_device` the card of the process from LOCAL_RANK.
 
 SAM ordering: each process writes its shard to its own file;
 `merge_sams` interleaves them back into input order (read index =
@@ -16,7 +19,53 @@ byte-identical to a single-process run.
 
 from __future__ import annotations
 
+import os
 from typing import Iterator, Sequence
+
+# how long the rendezvous waits for the other processes before it fails
+RENDEZVOUS_TIMEOUT_S = 120
+
+
+def init_distributed() -> tuple[int, int]:
+    """(rank, world size) of this process.  When MASTER_ADDR and
+    WORLD_SIZE are set, joins the torch.distributed process group of the
+    environment (`init_method="env://"`: RANK, WORLD_SIZE, MASTER_ADDR,
+    MASTER_PORT) over gloo, with a finite timeout so that a lost peer
+    fails the run instead of hanging it: nothing crosses the processes but
+    the rendezvous, so no GPU backend is needed.  Otherwise (0, 1)."""
+    if not (os.environ.get("MASTER_ADDR") and os.environ.get("WORLD_SIZE")):
+        return 0, 1
+    import datetime
+
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        dist.init_process_group(
+            "gloo", init_method="env://",
+            timeout=datetime.timedelta(seconds=RENDEZVOUS_TIMEOUT_S))
+    return dist.get_rank(), dist.get_world_size()
+
+
+def destroy() -> None:
+    """Leave the process group init_distributed joined, if any."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def local_cuda_device(local_rank: str | None, n_cuda: int) -> str:
+    """The CUDA device of a process: "cuda" when LOCAL_RANK is unset,
+    else "cuda:{LOCAL_RANK}" (one process a card, as `torchrun
+    --nproc-per-node N` starts them).  ValueError when LOCAL_RANK is not
+    one of the n_cuda visible cards: processes never share a card by
+    wrapping around."""
+    if local_rank is None or local_rank == "":
+        return "cuda"
+    k = int(local_rank)
+    if not 0 <= k < n_cuda:
+        raise ValueError(f"LOCAL_RANK {k} names no card: {n_cuda} visible")
+    return f"cuda:{k}"
 
 
 def shard_reads(n_reads: int, shard: int, n_shards: int) -> range:

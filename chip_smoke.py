@@ -73,7 +73,20 @@ Phases, each of which fails the run (exit code 1, no result line):
  13. dev-fn  the plain PyTorch functions behind a wave and a round
              (local_torch.align6, global_torch.global_batch) once each at
              those runs' largest shapes: GPU == CPU, wall time, Python
-             iterations, kernel launches and device time.
+             iterations, kernel launches and device time;
+ 14. multi   the multi-device layer (parallel/dist.py): its dry run
+             (parallel/dryrun.py) over [cuda:0] * 4, and over every
+             visible card when there are several; the first 4,096 SE
+             reads and 1,024 pairs through NativePipeline with the
+             sharded fused_idx, raw_t and fused backends and the sharded
+             seeder at n_dev = 1 and 4, and the first 512 pairs of the
+             device-protocol set through the sharded resident rescue and
+             CIGAR backends and their host-shipped twins: every SAM
+             byte-identical to the single-device run's, each kernel
+             launched n_dev times a call, each call's wall time logged;
+             two `mem` processes under the torch.distributed environment
+             (WORLD_SIZE=2, LOCAL_RANK=0: two one-card hosts sharing the
+             card), merged, byte-identical to the single run.
 Each path's launch counts are set to 0 just before it and read just
 after.  Each extension kernel's bound is the larger of its band cells
 (counted by the plain version on this run's inputs) times INT_OPS_PER_CELL
@@ -99,6 +112,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -114,6 +128,7 @@ SUB_SE, SUB_PE = 2_048, 1_024
 PY_SE, PY_PE = 4_096, 2_048        # the Python host's subset (it is slow)
 I16_SE = 8_192                     # reads of the 16-bit resident run
 DEV_PE = 2_048                     # pairs of the device-protocol PE set
+MD_SE, MD_PE, MD_DEV_PE = 4_096, 1_024, 512   # the multi-device phase's
 SEED_B = 2048                      # reads of the seeding kernels' gate
 GATE_B = 8192
 GATE_DIMS = (160, 320, 160, 320)   # the main path's (QL, TL, QR, TR)
@@ -999,6 +1014,7 @@ def phase_pe_device(tmp, run):
     log(f"device protocols: {n_waves} rescue waves and {n_rounds} CIGAR "
         f"rounds over {len(runs)} runs; extension launches "
         f"{dict(extend_cuda.launches)}")
+    return pe
 
 
 def phase_device_seed(tmp, run, host_rates):
@@ -1131,6 +1147,222 @@ def phase_device_functions(dev):
           (B, qmax, tmax), tmax + qmax + tmax)
 
 
+def timed_calls(fn):
+    """fn with the wall time of each call (host clock; the backends
+    return host arrays, so a call ends when its results are back) noted
+    in .walls; keeps the protocol attributes (.fused, .idx, quanta)."""
+    def wrapped(*args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        wrapped.walls.append(time.perf_counter() - t0)
+        return out
+
+    wrapped.__dict__.update(fn.__dict__)
+    wrapped.walls = []
+    return wrapped
+
+
+def wall_summary(walls):
+    return (f"{len(walls)} calls, {1e3 * sum(walls) / len(walls):.1f} ms a "
+            f"call ({1e3 * min(walls):.1f}-{1e3 * max(walls):.1f})"
+            if walls else "no calls")
+
+
+def phase_multi_device(tmp, run, dev_pe, dev):
+    """The multi-device layer on the card: the dry run over [dev] * 4 (and
+    over every visible card when there are several), the sharded
+    extension backends and seeder at n_dev = 1 and 4 on the first MD_SE SE
+    reads and MD_PE pairs of the main set, the sharded rescue and CIGAR
+    backends (resident and host-shipped) on the first MD_DEV_PE pairs of
+    the device-protocol set: records byte-identical to the single-device
+    resident run's, each kernel launched n_dev times a backend call; and
+    two `mem` processes under the torch.distributed environment, merged,
+    against the single run."""
+    from bwamem_tpu_torch.__main__ import load_index
+    from bwamem_tpu_torch.config import MemOptions
+    from bwamem_tpu_torch.index.occ_packed import pack_occ
+    from bwamem_tpu_torch.io.fastq import iter_fastq_chunks
+    from bwamem_tpu_torch.ops import extend_cuda, smem_cuda
+    from bwamem_tpu_torch.ops.types import params_from_options
+    from bwamem_tpu_torch.parallel import dist
+    from bwamem_tpu_torch.parallel.dryrun import dryrun_multi_device
+    from bwamem_tpu_torch.parallel.multihost import merge_sam_files
+    from bwamem_tpu_torch.pipeline import native_driver, resident
+
+    t_phase = time.time()
+    cards = dist.device_list()
+    for devs in [[dev] * 4] + ([cards] if len(cards) > 1 else []):
+        t0 = time.time()
+        got = dryrun_multi_device(devs)
+        log(f"dry run over {[str(d) for d in devs]}: sharded raw_t kernel "
+            f"step, SE chunk through the sharded raw_t, fused and fused_idx "
+            f"backends, PE chunk through the sharded extension, rescue and "
+            f"CIGAR backends (shipped and resident), sharded seeder: every "
+            f"SAM == the single-device run's ({len(got['se'])} reads, "
+            f"{len(got['pe'])} pairs; {time.time() - t0:.1f}s)")
+
+    opt = MemOptions()      # the CLI's defaults
+    params = params_from_options(opt)
+    ref, fm = load_index(run["fa"])
+    po = pack_occ(fm)
+    pipe = native_driver.NativePipeline(opt, ref, fm, po,
+                                        nthreads=run["threads"])
+    text = {dev: resident.make_resident_text(ref.pac, dev)}
+
+    def first(path, n, b):
+        got = []
+        for chunk in iter_fastq_chunks(path, b):
+            got.append(chunk)
+            if sum(len(c) for c in got) >= n:
+                return got
+        return got
+
+    def seqs(chunk):
+        return [r.seq.astype(np.int64) for r in chunk]
+
+    se_chunks = first(run["inputs"]["SE"][0], MD_SE, 2048)
+    pe = [first(p, MD_PE, MD_PE)[0] for p in run["inputs"]["PE"]]
+    dpe = [first(p, MD_DEV_PE, MD_DEV_PE)[0] for p in dev_pe]
+
+    def se_text(fn):
+        return "".join(pipe.align_chunk_text(
+            seqs(c), fn, names=[r.name for r in c],
+            quals=[r.qual for r in c])[0] for c in se_chunks)
+
+    def pe_text(pair, fn, rescue=None, cigar=None):
+        a, b = pair
+        return pipe.align_pairs_chunk_text(
+            seqs(a), seqs(b), fn, names=[r.name for r in a],
+            quals1=[r.qual for r in a], quals2=[r.qual for r in b],
+            rescue_fn=rescue, cigar_fn=cigar)[0]
+
+    def same(want, got, what):
+        if want != got:
+            w, g = want.splitlines(), got.splitlines()
+            i = next((k for k, (x, y) in enumerate(zip(w, g)) if x != y),
+                     min(len(w), len(g)))
+            fail(f"{what}: records differ at line {i} ({len(g)} vs {len(w)} "
+                 f"lines):\n{g[i:i + 1]}\n{w[i:i + 1]}")
+
+    single = resident.make_fused_idx_backend(params, ref.pac, dev,
+                                             text_dev=text[dev])
+    want_se, want_pe = se_text(single), pe_text(pe, single)
+    want_dpe = pe_text(dpe, single, resident.make_rescue_idx_backend(
+        ref.pac, dev, text_dev=text[dev]), resident.make_cigar_idx_backend(
+        ref.pac, dev, text_dev=text[dev]))
+    log(f"multi-device sets: {sum(len(c) for c in se_chunks)} SE reads in "
+        f"{len(se_chunks)} chunks, {len(pe[0])} pairs (one chunk), "
+        f"{len(dpe[0])} device-protocol pairs; single-device resident "
+        f"records {want_se.count(chr(10))}, {want_pe.count(chr(10))}, "
+        f"{want_dpe.count(chr(10))}")
+
+    for n in (1, 4):
+        devs = [dev] * n
+        for name, make, kernel in (
+                ("fused_idx", lambda: dist.make_sharded_fused_idx_backend(
+                    devs, params, ref.pac, text_dev=text), "extend_fused"),
+                ("raw_t", lambda: dist.make_sharded_raw_t_backend(
+                    devs, params), "extend_t"),
+                ("fused", lambda: dist.make_sharded_fused_backend(
+                    devs, params), "extend_fused")):
+            fn = make()
+            timed = timed_calls(fn)
+            extend_cuda.reset_launches()
+            same(want_se, se_text(timed), f"SE, sharded {name} at n_dev {n}")
+            same(want_pe, pe_text(pe, timed),
+                 f"PE, sharded {name} at n_dev {n}")
+            counts = dict(extend_cuda.launches)
+            others = {k: v for k, v in counts.items() if k != kernel and v}
+            if counts[kernel] != n * fn.dispatches or not fn.dispatches \
+                    or others:
+                fail(f"sharded {name} at n_dev {n}: launches {counts}, "
+                     f"{fn.dispatches} backend calls")
+            log(f"sharded {name} at n_dev {n}: SE and PE records == the "
+                f"single-device run's; {kernel} launches {counts[kernel]} == "
+                f"{n} x {fn.dispatches} calls; wall "
+                f"{wall_summary(timed.walls)}")
+
+        seed_fn = dist.make_sharded_device_seeder(devs, po, fm, opt)
+        timed = timed_calls(seed_fn)
+        smem_cuda.reset_launches()
+        pipe.seed_fn = timed
+        try:
+            same(want_se, se_text(single), f"SE, sharded seeder at n_dev {n}")
+            same(want_pe, pe_text(pe, single),
+                 f"PE, sharded seeder at n_dev {n}")
+        finally:
+            pipe.seed_fn = None
+        c, counts = seed_fn.stats.counts, dict(smem_cuda.launches)
+        want = {"bwt_smem_all": n * c["chunks"],
+                "bwt_smem1": n * c["split_rounds"], "bwt_sa": n * c["chunks"]}
+        if counts != want or not c["chunks"]:
+            fail(f"sharded seeder at n_dev {n}: launches {counts}, want "
+                 f"{want}")
+        log(f"sharded seeder at n_dev {n}: SE and PE records == host "
+            f"seeding's; launches {counts} == {n} x ({c['chunks']} chunks, "
+            f"{c['split_rounds']} re-seed rounds); wall "
+            f"{wall_summary(timed.walls)}")
+
+        for name, ext, rescue, cigar in (
+                ("resident", dist.make_sharded_fused_idx_backend(
+                    devs, params, ref.pac, text_dev=text),
+                 dist.make_sharded_rescue_idx_backend(devs, text_dev=text),
+                 dist.make_sharded_cigar_idx_backend(devs, text_dev=text)),
+                ("shipped", dist.make_sharded_fused_backend(devs, params),
+                 dist.make_sharded_rescue_backend(devs),
+                 dist.make_sharded_cigar_backend(devs))):
+            rescue, cigar = timed_calls(rescue), timed_calls(cigar)
+            same(want_dpe, pe_text(dpe, ext, rescue, cigar),
+                 f"device-protocol PE, sharded {name} rescue and CIGAR at "
+                 f"n_dev {n}")
+            if not rescue.walls or not cigar.walls:
+                fail(f"sharded {name} rescue and CIGAR at n_dev {n}: "
+                     f"{len(rescue.walls)} waves, {len(cigar.walls)} rounds")
+            log(f"sharded {name} rescue and CIGAR at n_dev {n}: records == "
+                f"the single-device run's; rescue waves "
+                f"{wall_summary(rescue.walls)}; CIGAR rounds "
+                f"{wall_summary(cigar.walls)}")
+
+    # two processes, each its shard from the torch.distributed environment
+    sub = os.path.join(tmp, "se_sub.fq")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=root, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port), WORLD_SIZE="2", LOCAL_RANK="0")
+    procs, paths = [], []
+    t0 = time.time()
+    for k in range(2):
+        paths.append(os.path.join(tmp, f"dist{k}.sam"))
+        with open(paths[-1], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "bwamem_tpu_torch", "mem",
+                 "--backend", "cuda", *run["common"], run["fa"], sub],
+                env=dict(env, RANK=str(k)), cwd=root, stdout=f,
+                stderr=subprocess.PIPE, text=True))
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for k, (p, err) in enumerate(zip(procs, errs)):
+        if p.returncode != 0 or f"[mem] shard {k}/2 (strided)" not in err:
+            fail(f"mem under RANK={k} WORLD_SIZE=2 exited {p.returncode}:\n"
+                 f"{err[-2000:]}")
+    merged = os.path.join(tmp, "dist_merged.sam")
+    merge_sam_files(paths, merged)
+    n = same_sam(os.path.join(tmp, "SE_sub_cuda.sam"), merged,
+                 "two processes (torch.distributed environment), merged, vs "
+                 "the single run")
+    log(f"two mem processes under RANK=0|1 WORLD_SIZE=2 LOCAL_RANK=0, "
+        f"merged: SAM byte-identical to the single run (apart from @PG; "
+        f"{n} lines; {time.time() - t0:.1f}s)")
+    log(f"multi-device phase: {time.time() - t_phase:.1f}s")
+
+
 def main() -> int:
     t_start = time.time()
     try:
@@ -1183,9 +1415,10 @@ def main() -> int:
             ("extend_fused",))
         _, rates_py = phase_python_host(tmp, run)
         launches_i16, launches_t_i16 = phase_i16_path(run, dev)
-        phase_pe_device(tmp, run)
+        dev_pe = phase_pe_device(tmp, run)
         seed_launches, rates_seed = phase_device_seed(tmp, run, rates)
         phase_device_functions(dev)
+        phase_multi_device(tmp, run, dev_pe, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for name, r in (("resident (default)", rates), ("--phased", rates_phased),

@@ -8,7 +8,8 @@ one runs `mem` SE and PE through the Python host and through the
 four-pass protocol; a third runs `mem --device-rescue --device-cigar` (from
 the resident reference and with --ship-ref, and --host python
 --device-cigar) on pairs that need rescue and reads with indels, and reads
-the waves and rounds off the trace."""
+the waves and rounds off the trace; a fourth runs the multi-device dry
+run (parallel/dryrun.py) over two CPU devices."""
 
 import os
 import subprocess
@@ -193,6 +194,21 @@ print("NOJAX_DEVICE_OK")
 """
 
 
+# the multi-device dry run (parallel/dryrun.py) over two CPU devices
+_DRYRUN_SCRIPT = _NOJAX + r"""
+import torch
+
+torch.set_num_threads(1)
+
+from bwamem_tpu_torch.parallel.dryrun import dryrun_multi_device
+
+got = dryrun_multi_device([torch.device("cpu")] * 2)
+assert len(got["se"]) == 16 and len(got["pe"]) == 24
+assert_none_loaded()
+print("NOJAX_DRYRUN_OK")
+"""
+
+
 def _run_blocked(script, token):
     env = dict(os.environ)
     env["PYTHONPATH"] = (os.path.dirname(os.path.dirname(
@@ -226,3 +242,11 @@ def test_device_rescue_and_cigar_run_with_jax_blocked():
     package, give the SAM of the host paths, and their waves and rounds
     really run."""
     _run_blocked(_DEVICE_SCRIPT, "NOJAX_DEVICE_OK")
+
+
+@pytest.mark.skipif(not native_driver.available(),
+                    reason="native library unavailable")
+def test_multi_device_dryrun_runs_with_jax_blocked():
+    """The multi-device layer (parallel/dist.py, its dry run, the sharded
+    seeder) reaches neither JAX nor the JAX package."""
+    _run_blocked(_DRYRUN_SCRIPT, "NOJAX_DRYRUN_OK")

@@ -155,3 +155,23 @@ def test_seed_rows_match_jax_and_native(world, seed):
     c = seed_fn.stats.counts
     assert c["ovf_reads"] >= 1 and c["split_rounds"] >= 1, c
     assert len(got) > 200 and len(np.unique(got[:, 0])) > 20
+
+
+@pytest.mark.parametrize("factory", ["smem_torch", "smem_cuda"])
+def test_seeders_refuse_2_31_rows(world, factory):
+    """Both single-device seeders refuse an index of 2^31 rows, as the
+    JAX package's make_device_seeder does (smem_jax.make_sa_batch_device:
+    "device SA lookup requires n_rows < 2^31"), before any table is copied
+    to the device."""
+    import dataclasses
+
+    from bwamem_tpu_torch.ops import smem_cuda
+
+    fm, po, *_ = world
+    make = {"smem_torch": smem_torch, "smem_cuda": smem_cuda}[factory]
+    big = dataclasses.replace(po, n_rows=1 << 31)
+    with pytest.raises(ValueError, match="2\\^31"):
+        make.make_device_seeder(big, fm, MemOptions(), "cpu")
+    with pytest.raises(ValueError, match="2\\^31"):
+        smem_jax.make_device_seeder(big, fm, MemOptions())
+    make.make_device_seeder(po, fm, MemOptions(), "cpu")   # below: builds

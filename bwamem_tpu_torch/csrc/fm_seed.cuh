@@ -1,11 +1,13 @@
 // FM-index seeding on the device, one thread per read or per SA row: the
-// __device__ functions of fm_seed.cu.
+// __device__ functions of fm_seed.cu, templated on the table type.
 //
 // They compute what the JAX package's lockstep seeding programs compute
 // (bwamem_tpu/ops/smem_jax.py: _smem1_kernel, _smem_all_kernel,
-// _sa_kernel), with the plain PyTorch version (ops/smem_torch.py) as their
-// specification, and they keep the JAX programs' caps and overflow rules,
-// not the C++ engine's growing vectors (csrc/smem.cpp):
+// _sa_kernel; over block-range table shards, bwamem_tpu/ops/
+// smem_sharded.py: _smem1_wide, _smem_all_wide, _sa_wide), with the plain
+// PyTorch version (ops/smem_torch.py) as their specification, and they
+// keep the JAX programs' caps and overflow rules, not the C++ engine's
+// growing vectors (csrc/smem.cpp):
 // - the forward pass keeps at most kPCap = 24 intervals; a push beyond that
 //   is dropped and sets the overflow flag (smem_jax.py:152-162);
 // - a call emits at most kMCap = 64 SMEMs, and a call that reaches 64 sets
@@ -24,6 +26,12 @@
 // registers and the thread's slot arrays (local memory).  Positions are
 // int64.  What bounds a thread is the chain of dependent gathers, one
 // rank4 pair an extension step: see fm_seed.cu.
+//
+// Two table types: Occ, the whole index on the thread's own card, and
+// ShardedOcc, the index split by block range over up to kMaxShards cards
+// (ops/smem_sharded.py).  They differ only in block_of (where a block's
+// three rows lie) and sample_at (where a sampled-SA entry lies); the
+// search, the walks and their caps are one code for both.
 
 #pragma once
 
@@ -45,14 +53,74 @@ struct Occ {
   int64_t n_rows;
 };
 
+constexpr int kMaxShards = 8;  // BASELINE config #4: one host, 8 chips
+
+// The tables split by contiguous 64-symbol block ranges (the layout of
+// ShardedSeedTables in ops/smem_sharded.py): shard k holds the global
+// blocks [blk_origin + k*nb_loc, blk_origin + (k+1)*nb_loc) as nb_loc rows
+// of occ, pk and va, and the sampled-SA entries [k*ns_loc, (k+1)*ns_loc).
+// Each pointer is a device pointer on its shard's card; a thread reads the
+// owner's memory directly (over NVLink, with peer access, when the owner is
+// another card).  Passed to the kernels by value; every member is 8 bytes
+// wide, so the ctypes mirror in ops/_build.py has no padding to match.
+struct ShardedOcc {
+  const int32_t* occ[kMaxShards];  // nb_loc x 4 checkpoints a shard
+  const uint32_t* pk[kMaxShards];  // nb_loc x 4 packed symbols
+  const uint32_t* va[kMaxShards];  // nb_loc x 4 validity lanes
+  const int64_t* ssa[kMaxShards];  // ns_loc sampled-SA entries
+  int64_t C[6];
+  int64_t primary;
+  int64_t n_rows;
+  int64_t nb_loc;
+  int64_t ns_loc;
+  int64_t blk_origin;  // global block of shard 0's first row
+  int64_t n_ssa;
+  int64_t sa_intv;
+  int64_t n_shards;
+};
+
+// The three rows of global block blk.
+struct Block {
+  const int32_t* occ;
+  const uint32_t* pk;
+  const uint32_t* va;
+};
+
+__device__ __forceinline__ Block block_of(const Occ& ix, int64_t blk) {
+  return Block{ix.occ + blk * 4, ix.pk + blk * 4, ix.va + blk * 4};
+}
+
+// The owning shard and the local row: the GPU counterpart of the JAX
+// module's masked gather and psum (_rank4_partial, smem_sharded.py:186).
+__device__ __forceinline__ Block block_of(const ShardedOcc& ix, int64_t blk) {
+  const int64_t g = blk - ix.blk_origin;
+  const int64_t s = g / ix.nb_loc;
+  const int64_t l = (g - s * ix.nb_loc) * 4;
+  return Block{ix.occ[s] + l, ix.pk[s] + l, ix.va[s] + l};
+}
+
+// Sampled-SA entry k.
+__device__ __forceinline__ int64_t sample_at(const Occ&, const int64_t* ssa,
+                                             int64_t k) {
+  return ssa[k];
+}
+
+__device__ __forceinline__ int64_t sample_at(const ShardedOcc& ix,
+                                             const int64_t*, int64_t k) {
+  const int64_t s = k / ix.ns_loc;
+  return ix.ssa[s][k - s * ix.ns_loc];
+}
+
 // Counts of bases 0..3 in bwt[0:i).
-__device__ __forceinline__ void rank4(const Occ& ix, int64_t i,
+template <class Tab>
+__device__ __forceinline__ void rank4(const Tab& ix, int64_t i,
                                       int64_t out[4]) {
   const int64_t blk = i >> 6;
   const int r = (int)(i & 63);
-  const uint32_t* w = ix.pk + blk * 4;
-  const uint32_t* v = ix.va + blk * 4;
-  const int32_t* base = ix.occ + blk * 4;
+  const Block b = block_of(ix, blk);
+  const uint32_t* w = b.pk;
+  const uint32_t* v = b.va;
+  const int32_t* base = b.occ;
   uint32_t wk[4], vk[4];
   for (int k = 0; k < 4; ++k) {
     const int nsym = r - 16 * k;
@@ -74,7 +142,8 @@ __device__ __forceinline__ void rank4(const Occ& ix, int64_t i,
 }
 
 // bwt_extend, is_back = 1: the four backward extensions of (x0, x1, s).
-__device__ __forceinline__ void extend_back4(const Occ& ix, int64_t x0,
+template <class Tab>
+__device__ __forceinline__ void extend_back4(const Tab& ix, int64_t x0,
                                              int64_t x1, int64_t s,
                                              int64_t nx0[4], int64_t nx1[4],
                                              int64_t ns[4]) {
@@ -93,7 +162,8 @@ __device__ __forceinline__ void extend_back4(const Occ& ix, int64_t x0,
 
 // The forward extension of (x0, x1, s) by base c (P.c): the backward
 // extension of the reverse complement by 3 - c, x0 and x1 swapped back.
-__device__ __forceinline__ void extend_fwd1(const Occ& ix, int64_t x0,
+template <class Tab>
+__device__ __forceinline__ void extend_fwd1(const Tab& ix, int64_t x0,
                                             int64_t x1, int64_t s, int c,
                                             int64_t* ex0, int64_t* ex1,
                                             int64_t* es) {
@@ -116,7 +186,8 @@ struct Smem1 {
 // program's caps: the SMEMs through x in emission order (qb descending)
 // into m, the position the scan resumes at, and the overflow flag.  A read
 // whose x is not a base (x >= qlen or an N) gives x + 1 and nothing.
-__device__ inline Smem1 smem1_dev(const Occ& ix, const uint8_t* q,
+template <class Tab>
+__device__ inline Smem1 smem1_dev(const Tab& ix, const uint8_t* q,
                                   int64_t qlen, int64_t x, int64_t min_intv,
                                   int64_t* m) {
   Smem1 out{x + 1, false, 0};
@@ -205,16 +276,17 @@ __device__ inline Smem1 smem1_dev(const Occ& ix, const uint8_t* q,
 // bwt_sa: the text position of SA row r by LF walks until the primary row
 // or a sampled row; 0 if neither comes within max_it steps (never, for
 // a well-formed index).
-__device__ inline int64_t sa_value_dev(const Occ& ix, const int64_t* ssa,
+template <class Tab>
+__device__ inline int64_t sa_value_dev(const Tab& ix, const int64_t* ssa,
                                        int64_t n_ssa, int64_t sa_intv,
                                        int64_t r, int64_t max_it) {
   for (int64_t d = 0; d < max_it; ++d) {
     if (r == ix.primary) return d;
-    if (r % sa_intv == 0) return ssa[(r / sa_intv) % n_ssa] + d;
-    const int64_t blk = r >> 6;
+    if (r % sa_intv == 0) return sample_at(ix, ssa, (r / sa_intv) % n_ssa) + d;
+    const Block b = block_of(ix, r >> 6);
     const int off = (int)(r & 63), lane = 2 * (off & 15);
-    const int sym = (int)((ix.pk[blk * 4 + (off >> 4)] >> lane) & 3u);
-    const int vbit = (int)((ix.va[blk * 4 + (off >> 4)] >> lane) & 1u);
+    const int sym = (int)((b.pk[off >> 4] >> lane) & 3u);
+    const int vbit = (int)((b.va[off >> 4] >> lane) & 1u);
     int64_t rk[4];
     rank4(ix, r, rk);
     if (vbit)

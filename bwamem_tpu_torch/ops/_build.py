@@ -62,6 +62,25 @@ def _bind(lib: ctypes.CDLL) -> None:
     bind_seed(lib)
     lib.bwt_error_string.restype = ctypes.c_char_p
     lib.bwt_error_string.argtypes = [i32]
+    lib.bwt_enable_peer_access.restype = i32
+    lib.bwt_enable_peer_access.argtypes = [i32, i32]
+
+
+MAX_SHARDS = 8     # fmseed::kMaxShards
+
+
+class ShardTable(ctypes.Structure):
+    """The ctypes mirror of fmseed::ShardedOcc (csrc/fm_seed.cuh): the
+    device pointers of every shard's tables, then the shared scalars;
+    every member is 8 bytes wide."""
+
+    _fields_ = ([(name, ctypes.c_void_p * MAX_SHARDS)
+                 for name in ("occ", "pk", "va", "ssa")]
+                + [("C", ctypes.c_int64 * 6)]
+                + [(name, ctypes.c_int64)
+                   for name in ("primary", "n_rows", "nb_loc", "ns_loc",
+                                "blk_origin", "n_ssa", "sa_intv",
+                                "n_shards")])
 
 
 def bind_seed(lib: ctypes.CDLL) -> None:
@@ -71,7 +90,13 @@ def bind_seed(lib: ctypes.CDLL) -> None:
     lib.bwt_smem_all.argtypes = tables + [vp, i32, vp, i64, i64, vp, vp]
     lib.bwt_smem1.argtypes = tables + [vp, i32, vp, vp, vp, vp, i64, vp, vp]
     lib.bwt_sa.argtypes = tables + [vp, i64, i64, vp, i64, i64, vp, vp]
-    for fn in (lib.bwt_smem_all, lib.bwt_smem1, lib.bwt_sa):
+    tab = ctypes.POINTER(ShardTable)
+    lib.bwt_rank4_sh.argtypes = [tab, vp, i64, vp, vp]
+    lib.bwt_smem_all_sh.argtypes = [tab, vp, i32, vp, i64, i64, vp, vp]
+    lib.bwt_smem1_sh.argtypes = [tab, vp, i32, vp, vp, vp, vp, i64, vp, vp]
+    lib.bwt_sa_sh.argtypes = [tab, vp, i64, i64, vp, vp]
+    for fn in (lib.bwt_smem_all, lib.bwt_smem1, lib.bwt_sa, lib.bwt_rank4_sh,
+               lib.bwt_smem_all_sh, lib.bwt_smem1_sh, lib.bwt_sa_sh):
         fn.restype = i32
 
 

@@ -35,7 +35,7 @@ def reset_launches() -> None:
             launches[k] = 0
 
 
-def _device(d: DeviceOcc, *xs):
+def device_of(d: DeviceOcc, *xs):
     """The tensors' device when it is a CUDA device, None for the CPU;
     raises unless d's tables and every tensor lie on one device."""
     dev = xs[0].device
@@ -50,7 +50,7 @@ def _device(d: DeviceOcc, *xs):
     return dev
 
 
-def _check(name, x, dtype, shape):
+def check_arg(name, x, dtype, shape):
     if x.dtype != dtype:
         raise TypeError(f"{name}: dtype {x.dtype}, want {dtype}")
     if tuple(x.shape) != tuple(shape) or not x.is_contiguous():
@@ -79,12 +79,12 @@ def _launch(name, dev, d: DeviceOcc, *args) -> None:
 def smem_all(d: DeviceOcc, q, qlen, min_seed_len: int):
     """The first SMEM round of every read (smem_torch.smem_all): q (B, L)
     uint8 codes, qlen (B,) int64; returns (B, ALL_COLS) int64."""
-    dev = _device(d, q, qlen)
+    dev = device_of(d, q, qlen)
     if dev is None:
         return smem_torch.smem_all(d, q, qlen, min_seed_len)
     B, L = q.shape
-    _check("q", q, torch.uint8, (B, L))
-    _check("qlen", qlen, torch.int64, (B,))
+    check_arg("q", q, torch.uint8, (B, L))
+    check_arg("qlen", qlen, torch.int64, (B,))
     out = torch.empty((B, ALL_COLS), dtype=torch.int64, device=dev)
     if B:
         _launch("bwt_smem_all", dev, d, q.data_ptr(), L, qlen.data_ptr(), B,
@@ -97,15 +97,15 @@ def smem1(d: DeviceOcc, q, qlen, x, min_intv, mask):
     set, at x = qlen (nothing) where not: q (B, L) uint8, qlen / x /
     min_intv (B,) int64, mask (B,) uint8.  Returns smem_torch.pack_smem1's
     (B, SMEM1_COLS) int64 layout."""
-    dev = _device(d, q, qlen, x, min_intv, mask)
+    dev = device_of(d, q, qlen, x, min_intv, mask)
     if dev is None:
         return smem_torch.pack_smem1(smem_torch.smem1(
             d, q, qlen, torch.where(mask.bool(), x, qlen), min_intv))
     B, L = q.shape
-    _check("q", q, torch.uint8, (B, L))
+    check_arg("q", q, torch.uint8, (B, L))
     for name, t in (("qlen", qlen), ("x", x), ("min_intv", min_intv)):
-        _check(name, t, torch.int64, (B,))
-    _check("mask", mask, torch.uint8, (B,))
+        check_arg(name, t, torch.int64, (B,))
+    check_arg("mask", mask, torch.uint8, (B,))
     out = torch.empty((B, SMEM1_COLS), dtype=torch.int64, device=dev)
     if B:
         _launch("bwt_smem1", dev, d, q.data_ptr(), L, qlen.data_ptr(),
@@ -114,20 +114,22 @@ def smem1(d: DeviceOcc, q, qlen, x, min_intv, mask):
     return out
 
 
-def sa(d: DeviceOcc, ssa, sa_intv: int, rows):
+def sa(d: DeviceOcc, ssa, sa_intv: int, rows, max_it=None):
     """Text positions of SA rows (smem_torch.sa_batch): ssa (n_ssa,) and
-    rows (n,) int64; returns (n,) int64."""
-    dev = _device(d, ssa, rows)
+    rows (n,) int64; returns (n,) int64 (0 for a walk that takes more
+    than max_it steps, smem_torch.sa_max_it by default)."""
+    dev = device_of(d, ssa, rows)
+    if max_it is None:
+        max_it = smem_torch.sa_max_it(d.n_rows)
     if dev is None:
-        return smem_torch.sa_batch(d, ssa, sa_intv, rows)
-    _check("ssa", ssa, torch.int64, (ssa.shape[0],))
-    _check("rows", rows, torch.int64, (rows.shape[0],))
+        return smem_torch.sa_batch(d, ssa, sa_intv, rows, max_it=max_it)
+    check_arg("ssa", ssa, torch.int64, (ssa.shape[0],))
+    check_arg("rows", rows, torch.int64, (rows.shape[0],))
     n = rows.shape[0]
     out = torch.empty(n, dtype=torch.int64, device=dev)
     if n:
         _launch("bwt_sa", dev, d, ssa.data_ptr(), ssa.shape[0], int(sa_intv),
-                rows.data_ptr(), n, min(d.n_rows + 1, (1 << 31) - 1),
-                out.data_ptr())
+                rows.data_ptr(), n, int(max_it), out.data_ptr())
     return out
 
 

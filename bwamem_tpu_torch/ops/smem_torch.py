@@ -11,6 +11,13 @@ round).  It serves the CPU tests, `mem --backend torch --device-seed`, and
 the card's gate, which holds the CUDA kernels of csrc/fm_seed.cu
 (ops/smem_cuda.py) to it.
 
+The three functions read the tables only through `d.occ[blk]`,
+`d.pk[blk]`, `d.va[blk]` (rows gathered by block) and `ssa[k]`, so they run
+unchanged over a DeviceOcc (the whole index on one device) or a
+ShardedOcc (the index split by block range over several devices, the
+plain version of ops/smem_sharded.py's kernels), where each gather goes to
+the owning shard.
+
 `collect_smems_device` / `collect_seeds_device` are the host flow around
 the three programs, shared with the kernel seeder: one first-round call,
 split re-seed rounds (at most one job a read a round), the exact scalar
@@ -43,24 +50,84 @@ _M32 = 0xFFFFFFFF
 _M55 = 0x55555555
 
 
+def table_tensor(a, device):
+    """A table of a PackedOcc as a tensor on `device`: a numpy array is
+    copied (uint32 words held as int32), a tensor (int32 words made on
+    the device) moved only if it lies elsewhere."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
 class DeviceOcc:
     """The packed occ tables of a PackedOcc (index/occ_packed.py) as
     tensors on `device`: occ (NB+1, 4) int32 checkpoints, pk / va
-    (NB, 4) uint32 words held as int32, C (6,) int64."""
+    (NB, 4) uint32 words held as int32, C (6,) int64.  The PackedOcc's
+    occ / pk / va may also be tensors already (a table made on the
+    card); its C is a numpy array."""
 
     def __init__(self, po, device):
-        def put(a, dt):
-            return torch.from_numpy(np.ascontiguousarray(a, dt)).to(device)
-
-        self.occ = put(po.occ_rows, np.int32)
+        self.occ = table_tensor(po.occ_rows, device)
         self.device = self.occ.device     # with its index: "cuda" -> cuda:0
-        self.pk = put(np.asarray(po.pk_rows, np.uint32).view(np.int32),
-                      np.int32)
-        self.va = put(np.asarray(po.va_rows, np.uint32).view(np.int32),
-                      np.int32)
-        self.C = put(po.C, np.int64)
+        self.pk = table_tensor(po.pk_rows, device)
+        self.va = table_tensor(po.va_rows, device)
+        self.C = table_tensor(np.asarray(po.C, np.int64), device)
         self.primary = int(po.primary)
         self.n_rows = int(po.n_rows)
+
+
+class BlockShards:
+    """The rows of one table split in contiguous ranges over shards:
+    shard k (a tensor on any device) holds the global rows [origin +
+    k * n_loc, origin + (k+1) * n_loc).  Indexing with a tensor of global
+    rows gathers each from its owning shard onto the index's device (the
+    plain version of the kernels' block_of / sample_at, csrc/
+    fm_seed.cuh): every shard gathers at the clamped local row and the
+    owner's answer is kept (a row no shard owns gives 0, as the JAX
+    module's masked psum).  len() is the number of rows the shards hold
+    for real (`n`)."""
+
+    def __init__(self, parts, n_loc: int, origin: int = 0, n: int = 0):
+        self.parts = list(parts)
+        self.n_loc = int(n_loc)
+        self.origin = int(origin)
+        self.n = int(n)
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, rows):
+        g = rows - self.origin
+        s = torch.div(g, self.n_loc, rounding_mode="floor")
+        loc = (g - s * self.n_loc).clamp(0, self.n_loc - 1)
+        out = None
+        for k, part in enumerate(self.parts):
+            got = part[loc.to(part.device)].to(rows.device)
+            mine = (s == k).reshape(s.shape + (1,) * (got.dim() - s.dim()))
+            out = torch.where(mine, got, 0 if out is None else out)
+        return out
+
+
+class ShardedOcc:
+    """A table-sharded index (ops/smem_sharded.ShardedSeedTables) as the
+    plain version on `device` sees it: occ / pk / va and the sampled SA
+    `ssa` as BlockShards, C (6,) int64 on `device`; the DeviceOcc
+    interface otherwise."""
+
+    def __init__(self, tabs, device):
+        self.tabs = tabs
+        self.device = torch.device(device)
+        self.occ, self.pk, self.va = (
+            BlockShards(parts, tabs.nb_loc, tabs.blk_origin)
+            for parts in (tabs.occ, tabs.pk, tabs.va))
+        self.ssa = BlockShards(tabs.ssa, tabs.ns_loc, 0, tabs.n_ssa)
+        self.C = torch.as_tensor(tabs.C, dtype=torch.int64,
+                                 device=self.device)
+        self.primary = tabs.primary
+        self.n_rows = tabs.n_rows
 
 
 def _count(stats, key, mask) -> None:
@@ -296,18 +363,34 @@ def smem_all(d: DeviceOcc, q, qlen, min_seed_len, stats=None):
                       sl[:, :, :ALL_CAP].permute(1, 0, 2).reshape(B, -1)], 1)
 
 
-def sa_batch(d: DeviceOcc, ssa, sa_intv: int, rows, stats=None):
+def sa_max_it(n_rows: int) -> int:
+    """The steps after which an SA walk gives up (smem_jax._sa_kernel's
+    bound): n_rows + 1, at most 2^31 - 1."""
+    return min(int(n_rows) + 1, (1 << 31) - 1)
+
+
+def sa_batch(d: DeviceOcc, ssa, sa_intv: int, rows, stats=None,
+             max_it=None):
     """Text positions of SA rows (bwt_sa), the twin of smem_jax.
     _sa_kernel: LF walks in lockstep until each row reaches the primary
-    row or a sampled row.  ssa: the sampled SA as int64 on d.device;
-    rows (N,) int64.  Returns (N,) int64.  `stats["rank4"]` /
-    `stats["lf"]` count the rank4 queries and the LF steps taken."""
+    row or a sampled row, or until max_it steps (sa_max_it by default;
+    such a row gives 0).  ssa: the sampled SA as int64 on d.device (or a
+    ShardedOcc's BlockShards); rows (N,) int64.  Returns (N,) int64.
+    `stats["rank4"]` / `stats["lf"]` count the rank4 queries and the LF
+    steps taken."""
+    return sa_walk(d, ssa, sa_intv, rows, stats, max_it)[0]
+
+
+def sa_walk(d: DeviceOcc, ssa, sa_intv: int, rows, stats=None,
+            max_it=None):
+    """sa_batch's walks: (N,) int64 positions and the (N,) bool mask of
+    the rows whose walk ended within max_it steps."""
     r = rows.long().clone()
     dpt = torch.zeros_like(r)
     val = torch.zeros_like(r)
     done = torch.zeros(r.shape, dtype=torch.bool, device=r.device)
-    n_ssa = ssa.shape[0]
-    for _ in range(min(d.n_rows + 1, (1 << 31) - 1)):
+    n_ssa = len(ssa)
+    for _ in range(sa_max_it(d.n_rows) if max_it is None else max_it):
         hitp = ~done & (r == d.primary)
         val = torch.where(hitp, dpt, val)
         done = done | hitp
@@ -321,8 +404,9 @@ def sa_batch(d: DeviceOcc, ssa, sa_intv: int, rows, stats=None):
         blk = r >> 6
         off = r & 63
         lane = 2 * (off & 15)
-        w = d.pk[blk, off >> 4].long() & _M32
-        vw = d.va[blk, off >> 4].long() & _M32
+        word = (off >> 4)[..., None]
+        w = d.pk[blk].gather(-1, word)[..., 0].long() & _M32
+        vw = d.va[blk].gather(-1, word)[..., 0].long() & _M32
         sym = (w >> lane) & 3
         vbit = (vw >> lane) & 1
         rk4 = rank4(d, r)
@@ -333,7 +417,7 @@ def sa_batch(d: DeviceOcc, ssa, sa_intv: int, rows, stats=None):
         newr = d.C[c_idx] + rankc
         r = torch.where(done, r, newr)
         dpt = torch.where(done, dpt, dpt + 1)
-    return val
+    return val, done
 
 
 # ---------------------------------------------------------------------

@@ -31,8 +31,9 @@ n_dev up to 256.  The factories keep no state but their counters, which
 a lock guards, so `--inflight` threads may share one.  The seeder splits
 the reads, the re-seed jobs and the SA rows of a chunk over the devices,
 each of which holds its own copy of the tables (the reads-sharded
-regime, below 2^31 index rows); the table-sharded regime of
-bwamem_tpu/ops/smem_sharded.py is not ported yet."""
+regime, below 2^31 index rows), or the tables split by block range over
+the devices (the table-sharded regime of ops/smem_sharded.py, at 2^31
+index rows or more)."""
 
 from __future__ import annotations
 
@@ -44,8 +45,6 @@ import torch
 from bwamem_tpu_torch.device import resolve, to_device
 from bwamem_tpu_torch.ops import extend_cuda, smem_cuda, smem_torch
 from bwamem_tpu_torch.ops.types import params_vector
-
-TABLE_SHARDED_ITEM = "ROADMAP Queue 1 item 1 (slice 8)"
 
 
 def device_list(devices=None) -> list[torch.device]:
@@ -110,7 +109,7 @@ def _lanes(n: int, n_dev: int, quantum: int, what: str):
     return [(k * step, (k + 1) * step) for k in range(n_dev)]
 
 
-def _rows(n: int, n_dev: int):
+def split_rows(n: int, n_dev: int):
     """The non-empty ranges of n rows split over n_dev devices as
     torch.tensor_split does (the first n % n_dev ranges one row longer)."""
     q, r = divmod(n, n_dev)
@@ -123,7 +122,7 @@ def _rows(n: int, n_dev: int):
     return out
 
 
-def _collect(outs, axis: int) -> np.ndarray:
+def collect(outs, axis: int) -> np.ndarray:
     """The shards' device results copied back in order and joined."""
     return np.concatenate([o.cpu().numpy() for o in outs], axis)
 
@@ -167,7 +166,7 @@ def make_sharded_raw_t_backend(devices, params, *, blk_l: int = 512):
         outs = [extend_cuda.extend_batch_raw_t(
                     *x, tmaxb[k * nb:(k + 1) * nb], prm)
                 for k, x in enumerate(ins)]
-        return _collect(outs, 1)
+        return collect(outs, 1)
 
     fn = _counted(raw_t)
     fn.bp_quantum = blk_l * n_dev
@@ -192,7 +191,7 @@ def make_sharded_fused_backend(devices, params, *, blk_l: int = 512):
         outs = [extend_cuda.extend_batch_raw_fused(
                     *win, s, tmax2[k * nb:(k + 1) * nb], prm)
                 for k, (win, s) in enumerate(ins)]
-        return _collect(outs, 1)
+        return collect(outs, 1)
 
     fn = _counted(fused)
     fn.fused = True
@@ -229,7 +228,7 @@ def make_sharded_fused_idx_backend(devices, params, pac, *,
                     qmax_l=qmax_l, tmax_l=tmax_l, qmax_r=qmax_r,
                     tmax_r=tmax_r, a_max=a_max)
                 for k, (d, s) in enumerate(zip(devices, ins))]
-        return _collect(outs, 1)
+        return collect(outs, 1)
 
     fn = _counted(fused_idx)
     fn.fused = True
@@ -312,8 +311,8 @@ def make_sharded_rescue_backend(devices):
         ins = [[to_device(x, np.int32, d) for x in (
                     seq_i8[a:b], lens[0][a:b], rseq_i8[a:b], lens[1][a:b])]
                for d, (a, b) in zip(devices, lanes)]
-        return _collect([align6(*x, mats[d], pens[d])
-                         for d, x in zip(devices, ins)], 1)
+        return collect([align6(*x, mats[d], pens[d])
+                        for d, x in zip(devices, ins)], 1)
 
     fn.b_quantum = n_dev
     return fn
@@ -339,9 +338,9 @@ def make_sharded_rescue_idx_backend(devices, pac=None, text_dev=None):
         pens = _on_each(devices, [o_del, e_del, o_ins, e_ins], np.int32)
         ins = [to_device(meta[:, a:b], np.int32, d)
                for d, (a, b) in zip(devices, lanes)]
-        return _collect([rescue_idx_local(reads[d], m, mats[d], pens[d],
-                                          texts[d], qmax=qmax, tmax=tmax)
-                         for d, m in zip(devices, ins)], 1)
+        return collect([rescue_idx_local(reads[d], m, mats[d], pens[d],
+                                         texts[d], qmax=qmax, tmax=tmax)
+                        for d, m in zip(devices, ins)], 1)
 
     rescue_idx.idx = True
     rescue_idx.b_quantum = n_dev
@@ -391,6 +390,12 @@ class ShardedPrograms(smem_torch.Programs):
     are not.  The chunk's reads arrive on the first device and each shard
     is copied from there."""
 
+    # the wrappers each shard runs (ops/smem_sharded.TableShardedPrograms
+    # runs its own over the tables it shares)
+    smem_all = staticmethod(smem_cuda.smem_all)
+    smem1 = staticmethod(smem_cuda.smem1)
+    sa = staticmethod(smem_cuda.sa)
+
     def __init__(self, devices, po, ssa, sa_intv: int):
         self.devices = device_list(devices)
         self.tables = {d: smem_torch.DeviceOcc(po, d)
@@ -399,13 +404,13 @@ class ShardedPrograms(smem_torch.Programs):
         self.ssas = {d: self.ssa.to(d) for d in self.tables}
 
     def _shards(self, n):
-        return list(zip(self.devices, _rows(n, len(self.devices))))
+        return list(zip(self.devices, split_rows(n, len(self.devices))))
 
     def all_fn(self, q, qlen, msl):
         ins = [(d, q[a:b].to(d), qlen[a:b].to(d))
                for d, (a, b) in self._shards(q.shape[0])]
-        return _collect([smem_cuda.smem_all(self.tables[d], qs, ls, msl)
-                         for d, qs, ls in ins], 0)
+        return collect([self.smem_all(self.tables[d], qs, ls, msl)
+                        for d, qs, ls in ins], 0)
 
     def smem1_fn(self, q, qlen, x, min_intv, mask):
         mask = mask.astype(np.uint8)
@@ -413,40 +418,45 @@ class ShardedPrograms(smem_torch.Programs):
                 *(torch.from_numpy(np.ascontiguousarray(v[a:b])).to(d)
                   for v in (x, min_intv, mask)))
                for d, (a, b) in self._shards(q.shape[0])]
-        return _collect([smem_cuda.smem1(self.tables[d], *xs)
-                         for d, *xs in ins], 0)
+        return collect([self.smem1(self.tables[d], *xs)
+                        for d, *xs in ins], 0)
 
     def sa_fn(self, rows):
         ins = [(d, torch.from_numpy(np.ascontiguousarray(rows[a:b])).to(d))
                for d, (a, b) in self._shards(rows.shape[0])]
-        return _collect([smem_cuda.sa(self.tables[d], self.ssas[d],
-                                      self.sa_intv, r)
-                         for d, r in ins], 0)
+        return collect([self.sa(self.tables[d], self.ssas[d],
+                                self.sa_intv, r)
+                        for d, r in ins], 0)
 
 
 def make_sharded_device_seeder(devices, po, fm, opt,
                                table_sharded: bool | None = None):
     """Device seeding with each chunk's reads, re-seed jobs and SA rows
-    split over `devices` and the tables replicated (the reads-sharded
-    regime): the `seed_fn(reads) -> (n, 4) int64 rows` of
+    split over `devices`: the `seed_fn(reads) -> (n, 4) int64 rows` of
     smem_cuda.make_device_seeder, rows equal to the single-device
-    seeder's in value and order.
+    seeder's in value and order.  Two regimes, as the JAX package's:
 
-    The table-sharded regime (the JAX package's default at 2^31 index
-    rows or more, or table_sharded=True) is not ported:
-    NotImplementedError.  A reads-sharded regime forced
-    (table_sharded=False) on an index of 2^31 rows or more: ValueError."""
+    - reads-sharded (below 2^31 index rows by default): each device holds
+      its own copy of the tables;
+    - table-sharded (at 2^31 index rows or more, or table_sharded=True):
+      the tables split by block range over the devices, each read from
+      its owner (ops/smem_sharded.make_table_sharded_seeder; every pair of
+      cards needs peer access).
+
+    A reads-sharded regime forced (table_sharded=False) on an index of
+    2^31 rows or more: ValueError."""
     if table_sharded is None:
         table_sharded = int(po.n_rows) >= 1 << 31
     if table_sharded:
-        raise NotImplementedError(
-            "table-sharded device seeding (bwamem_tpu/ops/smem_sharded.py) "
-            f"is not ported yet: {TABLE_SHARDED_ITEM}")
+        from bwamem_tpu_torch.ops.smem_sharded import (
+            make_table_sharded_seeder,
+        )
+
+        return make_table_sharded_seeder(devices, po, fm, opt)
     if int(po.n_rows) >= 1 << 31:
         raise ValueError(
-            "reads-sharded device seeding requires n_rows < 2^31; an index "
-            "this size needs the table-sharded regime, not ported yet: "
-            f"{TABLE_SHARDED_ITEM}")
+            "reads-sharded device seeding requires n_rows < 2^31; "
+            "use table_sharded=True (the default at this scale)")
     return smem_torch.seeder(ShardedPrograms(devices, po, fm.ssa,
                                              fm.sa_intv), fm, opt)
 

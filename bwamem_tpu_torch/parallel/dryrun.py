@@ -1,7 +1,6 @@
 """A dry run of the multi-device layer (parallel/dist.py) on a list of
 devices: the counterpart of the JAX package's
-`__graft_entry__.dryrun_multichip`, without its table-sharded part (not
-ported yet).
+`__graft_entry__.dryrun_multichip`.
 
 `dryrun_multi_device(devices)` drives every sharded backend once on a
 small simulated world and raises RuntimeError on any difference:
@@ -13,7 +12,12 @@ small simulated world and raises RuntimeError on any difference:
   backends, host-shipped and resident: SAM identical to the
   single-device resident run, with rescue waves and CIGAR rounds run;
 - the SE chunk seeded by the sharded device seeder: SAM identical to the
-  host-seeded run.
+  host-seeded run;
+- the table-sharded regime (ops/smem_sharded.py) forced at this scale:
+  rank4 through make_sharded_rank4 on the tables placed at a block
+  origin of 2^26 (a 2^32-row offset) equal to the host rank4 on the same
+  rows, and the SE chunk seeded by the table-sharded seeder: SAM
+  identical to the host-seeded run.
 
 On CUDA devices the kernels run (`[torch.device("cuda:0")] * 4` splits
 over one card); on `[torch.device("cpu")] * n` their plain versions."""
@@ -85,8 +89,9 @@ def dryrun_multi_device(devices, *, blk_l: int = 128, seed: int = 0):
     reproduced."""
     from bwamem_tpu_torch.config import MemOptions
     from bwamem_tpu_torch.index.build import build_index
-    from bwamem_tpu_torch.index.occ_packed import pack_occ
+    from bwamem_tpu_torch.index.occ_packed import pack_occ, rank4
     from bwamem_tpu_torch.io.fasta import Contig, Reference
+    from bwamem_tpu_torch.ops import smem_sharded
     from bwamem_tpu_torch.ops.types import params_from_options
     from bwamem_tpu_torch.parallel import dist
     from bwamem_tpu_torch.pipeline import native_driver, resident
@@ -167,6 +172,24 @@ def dryrun_multi_device(devices, *, blk_l: int = 128, seed: int = 0):
     try:
         _same(want_se, _lines(pipe.align_chunk(reads, fused_idx)),
               "SE chunk, sharded device seeding")
+    finally:
+        pipe.seed_fn = None
+
+    # the table-sharded regime: the rank routing at a 2^32-row origin,
+    # then the SE chunk seeded through it
+    origin = 1 << 26
+    tabs = smem_sharded.ShardedSeedTables(po, fm.ssa, fm.sa_intv, devices,
+                                          blk_origin=origin)
+    rows = rng.integers(0, po.n_rows + 1, 257).astype(np.int64)
+    got = smem_sharded.make_sharded_rank4(devices, tabs)(rows + (origin << 6))
+    if not np.array_equal(got, rank4(po, rows)):
+        raise RuntimeError("table-sharded rank4 at a 2^32-row origin != "
+                           "host rank4")
+    pipe.seed_fn = dist.make_sharded_device_seeder(devices, po, fm, opt,
+                                                   table_sharded=True)
+    try:
+        _same(want_se, _lines(pipe.align_chunk(reads, fused_idx)),
+              "SE chunk, table-sharded device seeding")
     finally:
         pipe.seed_fn = None
     return {"se": want_se, "pe": want_pe, "world": world}

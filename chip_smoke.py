@@ -6,7 +6,7 @@ Run from the root of the repository on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phases, each of which fails the run (exit code 1, no result line):
-  1. build   the seven CUDA kernels from bwamem_tpu_torch/csrc with nvcc
+  1. build   the eleven CUDA kernels from bwamem_tpu_torch/csrc with nvcc
              (one process per source, all at once);
   2. kernel  the fused extension kernel, with 32-bit cells (extend_fused)
              and with packed 16-bit cells (extend_fused_i16), each against
@@ -18,10 +18,11 @@ Phases, each of which fails the run (exit code 1, no result line):
              both plain versions timed with CUDA events;
   3. kernel_t the per-phase kernels (extend_t, extend_t_i16) the same way
              (all 8 rows, every lane) at (qmax, tmax) = (160, 320) and
-             (1024, 64) and on the hard-case batch in a query window for
-             every group width and strip length of the launch table,
-             fields 0-5 against the scalar oracle on 96 lanes, and timed
-             at bench.py's shape;
+             (1024, 64), on the hard-case batch in a query window for
+             every group width and strip length of the launch table and
+             at the reference hardware's caps (qlen 255, tlen 2047, 8
+             lanes), fields 0-5 against the scalar oracle on 96 lanes,
+             and timed at bench.py's shape;
   4. seed    the seeding kernels (bwt_smem_all, bwt_smem1, bwt_sa) against
              their plain PyTorch versions on the card, exactly, on 2,048
              reads over the smoke genome plus a contig made to overflow the
@@ -30,6 +31,25 @@ Phases, each of which fails the run (exit code 1, no result line):
              one read must overflow; the kernel seeder's rows against the
              C++ engine's (collect_seeds_native), values and order; each
              kernel timed with its bytes bound;
+  4b. seed-sh the table-sharded seeding kernels (bwt_rank4_sh,
+             bwt_smem_all_sh, bwt_smem1_sh, bwt_sa_sh; ops/smem_sharded.py)
+             at two scales.  Smoke scale, on phase 4's gate: over
+             [cuda:0] * n, n = 1 and 4 (and over every card when there are
+             several with peer access; without it the factory must
+             refuse), each kernel == its plain version over the same
+             shards and == the unsharded kernel, every row and field,
+             timed with its bytes bound; the path (its launch counts set
+             to 0 just before it and read just after): rank4 through
+             make_sharded_rank4 at a block origin of 2^26 == host rank4,
+             and the first 4,096 SE reads of phase 6 through
+             NativePipeline with the table-sharded seeder at n_dev 1 and
+             4, SAM byte-identical to host seeding.  Human scale: a
+             synthetic index of 6,200,000,001 rows (GRCh38 two-strand) at
+             sa_intv 32 made on the card; rank4 on 1,000,000 rows across
+             2^31, 2^32 and n_rows, the SMEM search on 2,048 LF-walk reads
+             (some SMEM at a row >= 2^31) and 100,000 SA walks: the
+             unsharded kernels and the _sh kernels at n_dev 1 and 4
+             against the plain version; peak device memory logged;
   5. gather  the resident-reference gathers on the GPU against the same
              gathers on the CPU at their edge cases;
   6. main    `python -m bwamem_tpu_torch index|mem` (in this process) on
@@ -75,8 +95,9 @@ Phases, each of which fails the run (exit code 1, no result line):
              those runs' largest shapes: GPU == CPU, wall time, Python
              iterations, kernel launches and device time;
  14. multi   the multi-device layer (parallel/dist.py): its dry run
-             (parallel/dryrun.py) over [cuda:0] * 4, and over every
-             visible card when there are several; the first 4,096 SE
+             (parallel/dryrun.py, its table-sharded half included) over
+             [cuda:0] * 4, and over every visible card when there are
+             several; the first 4,096 SE
              reads and 1,024 pairs through NativePipeline with the
              sharded fused_idx, raw_t and fused backends and the sharded
              seeder at n_dev = 1 and 4, and the first 512 pairs of the
@@ -93,10 +114,11 @@ after.  Each extension kernel's bound is the larger of its band cells
 over PEAK_INT_OPS (with 16-bit cells: two cells an operation) and its
 bytes (inputs read once, outputs written once) over PEAK_BYTES; a seeding
 kernel's is bytes: 48 B a rank4 query and 8 B an LF step (counted by the
-plain version) with its inputs and outputs.  The last line of standard
+plain version) with its inputs and outputs.  The `kernels` line gives the
+_sh kernels' smoke-scale times at n_dev 4.  The last line of standard
 output is {"ok": true, "device": {...}}.
 
-`python3 chip_smoke.py --kernels-only` stops after phase 4.
+`python3 chip_smoke.py --kernels-only` stops after phase 4b.
 
 This script and everything it loads (the port, tests/_torch_gate.py)
 import neither JAX nor the JAX package; the run fails if either is among
@@ -186,8 +208,11 @@ def ptxas_summary(log_text):
         if m:
             name = re.sub(r"^_Z\w*?\d+(extend_\w+?_kernel)(?:ILi(\d+)ELi"
                           r"(\d+)E(\w)E)?.*", r"\1<\2,\3,\4>", m.group(1))
-            seed = re.search(r"\d((?:smem_all|smem1|sa)_kernel)", name)
-            name = seed.group(1) if seed else name
+            seed = re.search(r"\d((?:smem_all|smem1|sa|rank4)_kernel)",
+                             name)
+            if seed:   # the _sh instantiations read a ShardedOcc
+                name = seed.group(1) + ("<sh>" if "ShardedOcc" in name
+                                        or "rank4" in name else "")
         m = re.search(r"(\d+) bytes stack frame", line)
         if m and int(m.group(1)):
             out.append(f"{name} {m.group(1)} B stack")
@@ -398,6 +423,14 @@ def phase_kernel_t(dev):
             f"{scal.shape[1]} lanes of the hard-case batch at qmax {qmax} "
             f"(zdrop 100 and 0); fields 0-5 == ksw_extend_core on {n} lanes")
 
+    q, t, scal, bounds = gate.capacity_t_batch()
+    args = [torch.from_numpy(x).to(dev) for x in (q, t, scal)]
+    n = check(args, bounds, q, t, scal, PRM,
+              "at the capacity limits (qlen 255, tlen 2047)", 8)
+    log(f"extend_t 32-bit and 16-bit kernels == plain on all 8 rows x {n} "
+        f"lanes at the reference hardware's caps (qlen 255 in a 256 window, "
+        f"tlen 2047 in a 2048 window); fields 0-5 == ksw_extend_core")
+
     q, t, scal, bounds = bench_t_batch()
     prm = PRM.copy()
     prm[6] = 0  # bench.py's zdrop
@@ -546,7 +579,483 @@ def phase_seed_kernels(dev):
     timed("bwt_sa", lambda: smem_cuda.sa(d, progs.ssa, fm.sa_intv, r_d),
           lambda: smem_torch.sa_batch(d, progs.ssa, fm.sa_intv, r_d), st,
           16 * len(sa_rows))
-    return timing
+    return timing, (fm, po, reads, sa_rows)
+
+
+SH_N_ROWS = 6_200_000_001    # GRCh38 two-strand: 6.2 G index rows
+SH_PRIMARY = 5_000_000_011   # the synthetic index's primary row, > 2^32
+SH_SA_INTV = 32
+SH_SE = 4096                     # SE reads of phase 6 seeded table-sharded
+
+
+def timed_once(fn):
+    """fn() once between CUDA events: (its result, ms)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def clear_lanes(words, lanes):
+    """Set to 0 the 2-bit lanes {block: [(word, lane), ...]} of the
+    (blocks, 4) int32 word table `words` (a few rows, on the host)."""
+    import torch
+
+    for blk, where in lanes.items():
+        w = words[blk].cpu().numpy().view(np.uint32).copy()
+        for word, lane in where:
+            w[word] &= np.uint32(~(3 << (2 * lane)) & 0xFFFFFFFF)
+        words[blk] = torch.from_numpy(w.view(np.int32)).to(words.device)
+
+
+def human_scale_tables(dev, seed=8):
+    """A synthetic packed index of SH_N_ROWS rows made on the card from a
+    seeded torch.Generator: random 2-bit symbols, every lane valid but the
+    primary row's (placed above 2^32) and the padding past n_rows, the
+    checkpoints by an int64 cumulative sum of per-block counts (each
+    per-symbol count checked under 2^31 before it becomes int32, as
+    pack_occ checks), C from the totals, symbols 0 and 3 swapped where
+    needed so that count(0) <= count(3) (a two-strand index has them equal;
+    the bi-intervals of the search then stay inside the table), and a
+    random sampled SA every SH_SA_INTV rows.  It is not the BWT of a text,
+    but an LF walk from any row is a path of the table.  Returns (a
+    PackedOcc-like namespace of the tables, the sampled SA)."""
+    import types
+
+    import torch
+
+    n = SH_N_ROWS
+    nb = -(-n // 64)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    primary = SH_PRIMARY
+    pk = torch.empty((nb + 1, 4), dtype=torch.int32, device=dev)
+    raw = pk.view(torch.uint8).view(-1)
+    step = 1 << 28
+    for a in range(0, raw.numel(), step):
+        b = min(a + step, raw.numel())
+        raw[a:b] = torch.randint(0, 256, (b - a,), dtype=torch.uint8,
+                                 generator=g, device=dev)
+    va = torch.full((nb + 1, 4), 0x55555555, dtype=torch.int32, device=dev)
+    # the invalid lanes: the primary row and every row from n on
+    bad = {}
+    for r in [primary] + list(range(n, (nb + 1) * 64)):
+        bad.setdefault(r >> 6, []).append(((r & 63) >> 4, r & 15))
+    clear_lanes(pk, bad)
+    clear_lanes(va, bad)
+
+    def counts(lo, hi):
+        w = pk[lo:hi].long() & 0xFFFFFFFF
+        v = va[lo:hi].long() & 0xFFFFFFFF
+        out = []
+        for c in range(4):
+            t = ~(w ^ (c * 0x55555555)) & 0xFFFFFFFF
+            x = t & (t >> 1) & 0x55555555 & v
+            x = x - ((x >> 1) & 0x55555555)
+            x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+            x = (x + (x >> 4)) & 0x0F0F0F0F
+            out.append((((x * 0x01010101) & 0xFFFFFFFF) >> 24).sum(1))
+        return torch.stack(out, 1)
+
+    occ = torch.empty((nb + 1, 4), dtype=torch.int32, device=dev)
+    occ[0] = 0
+    carry = torch.zeros(4, dtype=torch.int64, device=dev)
+    step = 1 << 22
+    for a in range(0, nb, step):
+        b = min(a + step, nb)
+        cum = counts(a, b).cumsum(0) + carry
+        if int(cum[-1].max()) >= 1 << 31:
+            fail("synthetic index: a per-symbol count reaches 2^31")
+        occ[a + 1:b + 1] = cum.to(torch.int32)
+        carry = cum[-1]
+    tot = carry.cpu().numpy()
+    if tot[0] > tot[3]:                # code c -> 3 - c, counts reversed
+        torch.bitwise_not(pk, out=pk)
+        clear_lanes(pk, bad)
+        occ = occ.flip(1).contiguous()
+        tot = tot[::-1].copy()
+    if int(tot.sum()) != n - 1:
+        fail(f"synthetic index: {int(tot.sum())} valid rows, want {n - 1}")
+    C = np.zeros(6, np.int64)
+    C[0] = 1
+    C[1:5] = 1 + np.cumsum(tot)
+    C[5] = C[4]
+    n_ssa = -(-n // SH_SA_INTV)
+    ssa = torch.randint(0, n, (n_ssa,), dtype=torch.int64, generator=g,
+                        device=dev)
+    po = types.SimpleNamespace(occ_rows=occ, pk_rows=pk, va_rows=va, C=C,
+                               primary=primary, n_rows=n)
+    return po, ssa
+
+
+def lf_walk_reads(d, n_reads, length, rng):
+    """n_reads reads of `length` bases spelled by LF walks from random rows
+    of the table d (the reversed walk, so that backward search along the
+    read follows the walk), with 1% substitutions; walks that reach the
+    primary row are dropped.  Returns (B, L) uint8 codes and (B,) int64
+    lengths on the host."""
+    import torch
+
+    from bwamem_tpu_torch.ops import smem_torch
+
+    m = int(n_reads * 1.05) + 8
+    r = torch.from_numpy(rng.integers(0, d.n_rows, m)).to(d.device)
+    syms = torch.empty((m, length), dtype=torch.int64, device=d.device)
+    ok = torch.ones(m, dtype=torch.bool, device=d.device)
+    for k in range(length):
+        blk, off = r >> 6, r & 63
+        word = (off >> 4)[:, None]
+        lane = 2 * (off & 15)
+        sym = ((d.pk[blk].gather(1, word)[:, 0].long() & 0xFFFFFFFF)
+               >> lane) & 3
+        ok &= (((d.va[blk].gather(1, word)[:, 0].long() & 0xFFFFFFFF)
+                >> lane) & 1) == 1
+        syms[:, k] = sym
+        rk = smem_torch.rank4(d, r)
+        r = torch.where(ok, d.C[sym] + rk.gather(1, sym[:, None])[:, 0], 0)
+    keep = ok.nonzero()[:, 0][:n_reads]
+    if len(keep) < n_reads:
+        fail(f"only {len(keep)} LF walks of {m} avoided the primary row")
+    reads = syms[keep].flip(1).cpu().numpy().astype(np.uint8)
+    sub = rng.random(reads.shape) < 0.01
+    reads[sub] = rng.integers(0, 4, int(sub.sum()))
+    return reads, np.full(n_reads, length, np.int64)
+
+
+def phase_seed_sharded(dev, seed_gate):
+    """The table-sharded seeding kernels (bwt_rank4_sh, bwt_smem_all_sh,
+    bwt_smem1_sh, bwt_sa_sh) at two scales.  Smoke scale, phase 4's gate:
+    at n_dev 1 and 4 over [dev] * n (and over every card when there are
+    several with peer access; without it the factory must refuse) each
+    kernel == its plain version over the same shards and == the
+    unsharded kernel, every row and field; then the path: rank4 through
+    make_sharded_rank4 at a block origin of 2^26 == the host rank4, and
+    phase 6's first SH_SE SE reads through NativePipeline with the
+    table-sharded seeder at n_dev 1 and 4: SAM == the host-seeded run.
+    Human scale: a synthetic index of SH_N_ROWS rows made on the card,
+    rank4 across 2^31, 2^32 and n_rows, the SMEM search on LF-walk reads
+    (some x0 >= 2^31) and the SA walks, the unsharded kernels and the
+    _sh twins at n_dev 1 and 4 against the plain version.  Returns the
+    `kernels` line's timings (smoke scale, n_dev 4) and the path's
+    launches."""
+    import torch
+
+    import _torch_gate as gate
+    from bwamem_tpu_torch.__main__ import load_index, main
+    from bwamem_tpu_torch.config import MemOptions
+    from bwamem_tpu_torch.index.occ_packed import pack_occ, rank4
+    from bwamem_tpu_torch.io.fastq import iter_fastq_chunks
+    from bwamem_tpu_torch.ops import smem_cuda, smem_sharded, smem_torch
+    from bwamem_tpu_torch.ops.types import params_from_options
+    from bwamem_tpu_torch.parallel import dist
+    from bwamem_tpu_torch.pipeline import native_driver, resident
+
+    t_phase = time.time()
+    opt = MemOptions()
+    msl = opt.min_seed_len
+    fm, po, reads, sa_rows = seed_gate
+    B = len(reads)
+    mat, qlen = gate.read_matrix(reads)
+    rng = np.random.default_rng(6)
+    x = rng.integers(0, np.maximum(qlen, 1))
+    mi = rng.choice([1, 2, 5], B)
+    mask = (rng.random(B) < 0.9).astype(np.uint8)
+    rows4 = np.concatenate([rng.integers(0, po.n_rows + 1, 100_000),
+                            [0, po.primary, po.n_rows]]).astype(np.int64)
+
+    def inputs(device):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in (("q", mat), ("ql", qlen), ("x", x), ("mi", mi),
+                             ("mask", mask), ("rows4", rows4),
+                             ("sa", sa_rows))}
+
+    t = inputs(dev)
+    d = smem_torch.DeviceOcc(po, dev)
+    ssa = torch.from_numpy(np.asarray(fm.ssa, np.int64)).to(dev)
+    unsharded = {
+        "bwt_rank4_sh": smem_torch.rank4(d, t["rows4"]),
+        "bwt_smem_all_sh": smem_cuda.smem_all(d, t["q"], t["ql"], msl),
+        "bwt_smem1_sh": smem_cuda.smem1(d, t["q"], t["ql"], t["x"], t["mi"],
+                                        t["mask"]),
+        "bwt_sa_sh": smem_cuda.sa(d, ssa, fm.sa_intv, t["sa"])}
+    torch.cuda.synchronize()
+
+    def calls(v, t):
+        """Each _sh kernel and its plain version over the view v."""
+        x_eff = torch.where(t["mask"].bool(), t["x"], t["ql"])
+        return {
+            "bwt_rank4_sh": (
+                lambda: smem_sharded.rank4(v, t["rows4"]),
+                lambda st: smem_torch.rank4(v, t["rows4"])),
+            "bwt_smem_all_sh": (
+                lambda: smem_sharded.smem_all(v, t["q"], t["ql"], msl),
+                lambda st: smem_torch.smem_all(v, t["q"], t["ql"], msl, st)),
+            "bwt_smem1_sh": (
+                lambda: smem_sharded.smem1(v, t["q"], t["ql"], t["x"],
+                                           t["mi"], t["mask"]),
+                lambda st: smem_torch.pack_smem1(smem_torch.smem1(
+                    v, t["q"], t["ql"], x_eff, t["mi"], st))),
+            "bwt_sa_sh": (
+                lambda: smem_sharded.sa(v, v.ssa, fm.sa_intv, t["sa"]),
+                lambda st: smem_torch.sa_batch(v, v.ssa, fm.sa_intv,
+                                               t["sa"], st))}
+
+    def same(name, got, want, what):
+        """Every row and field; for bwt_smem_all_sh against the plain
+        version, the slots of reads that overflowed are not compared (as
+        in phase 4)."""
+        if name == "bwt_smem_all_sh" and what.startswith("plain"):
+            ok = want[:, 1] == 0
+            good = torch.equal(got[:, :2], want[:, :2]) and torch.equal(
+                got[ok], want[ok])
+        else:
+            good = torch.equal(got, want)
+        if not good:
+            bad = (got != want).nonzero()[:5].tolist()
+            fail(f"{name} != {what}: first (row, column) {bad}")
+
+    def sh_gate(devs, t, timing=None):
+        """The four kernels over [dev] * n or a list of cards, each
+        against its plain version and the unsharded kernel; with `timing`
+        they are timed too."""
+        tabs = smem_sharded.ShardedSeedTables(po, fm.ssa, fm.sa_intv, devs)
+        smem_sharded.enable_peer_access(devs)
+        v = tabs.view(devs[0])
+        for name, (kernel, plain) in calls(v, t).items():
+            got = kernel()
+            torch.cuda.synchronize()
+            st = {}
+            want, plain_ms = timed_once(lambda: plain(st))
+            same(name, got, want, "plain")
+            same(name, got, unsharded[name].to(devs[0]),
+                 "the unsharded kernel (rank4: plain, the whole index)")
+            if timing is not None:
+                n_bytes = sum(a.nbytes for a in {
+                    "bwt_rank4_sh": (rows4,), "bwt_smem_all_sh": (mat, qlen),
+                    "bwt_smem1_sh": (mat, qlen, x, mi, mask),
+                    "bwt_sa_sh": (sa_rows,)}[name]) + 8 * got.numel()
+                if name == "bwt_rank4_sh":
+                    st = {"rank4": len(rows4)}
+                ms = cuda_ms(kernel, 20)
+                bound_ms, total = seed_bound(st, n_bytes)
+                log(f"{name} at n_dev {len(devs)} (smoke scale): kernel "
+                    f"{ms:.4f} ms, plain PyTorch {plain_ms:.1f} ms (one call, "
+                    f"CUDA events); {st.get('rank4', 0)} rank4 queries, "
+                    f"{st.get('lf', 0)} LF steps, {total} B -> bound "
+                    f"{bound_ms:.4f} ms = {100 * bound_ms / ms:.2f}% of the "
+                    f"kernel's time")
+                timing[name] = {"max_abs_err": 0, "ms": ms,
+                                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                "bound_by": "bytes", "library_ms": None}
+        log(f"_sh kernels over {[str(x) for x in devs]} == plain == the "
+            f"unsharded kernels on the {B}-read gate (rank4 on "
+            f"{len(rows4)} rows, SA walks on {len(sa_rows)} rows)")
+
+    timing = {}
+    sh_gate([dev], t)
+    sh_gate([dev] * 4, t, timing)
+    cards = dist.device_list()
+    if len(cards) > 1:
+        peers = all(torch.cuda.can_device_access_peer(a.index, b.index)
+                    for a in cards for b in cards if a != b)
+        if peers:
+            sh_gate(cards, inputs(cards[0]))
+        else:
+            try:
+                smem_sharded.make_table_sharded_seeder(cards, po, fm, opt)
+            except RuntimeError as e:
+                log(f"{len(cards)} cards without peer access: the factory "
+                    f"refuses ({e})")
+            else:
+                fail("make_table_sharded_seeder accepted cards without "
+                     "peer access")
+
+    # the path: the rank routing at a 2^32-row origin, then phase 6's
+    # first SE reads seeded through the table-sharded seeder
+    tmp = tempfile.mkdtemp(prefix="bwamem_sh_")
+    try:
+        fa, se, _, _ = simulate(tmp, N_SE, 0)
+        with contextlib.redirect_stderr(io.StringIO()):
+            if main(["index", fa]) != 0:
+                fail("index of the smoke genome failed")
+        ref, gfm = load_index(fa)
+        chunks = []
+        for chunk in iter_fastq_chunks(se, 2048):
+            chunks.append(chunk)
+            if sum(len(c) for c in chunks) >= SH_SE:
+                break
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gpo = pack_occ(gfm)
+    pipe = native_driver.NativePipeline(opt, ref, gfm, gpo,
+                                        nthreads=min(os.cpu_count() or 1, 8))
+    ext = resident.make_fused_idx_backend(params_from_options(opt), ref.pac,
+                                          dev)
+
+    def sam():
+        return "".join(pipe.align_chunk_text(
+            [r.seq.astype(np.int64) for r in c], ext,
+            names=[r.name for r in c], quals=[r.qual for r in c])[0]
+            for c in chunks)
+
+    want_sam = sam()
+    origin = 1 << 26
+    o_rows = rng.integers(0, gpo.n_rows + 1, 100_000).astype(np.int64)
+    smem_sharded.reset_launches()
+    smem_cuda.reset_launches()
+    t0 = time.time()
+    otabs = smem_sharded.ShardedSeedTables(gpo, gfm.ssa, gfm.sa_intv,
+                                           [dev] * 4, blk_origin=origin)
+    got = smem_sharded.make_sharded_rank4([dev] * 4, otabs)(
+        o_rows + (origin << 6))
+    if not np.array_equal(got, rank4(gpo, o_rows)):
+        fail("bwt_rank4_sh at a 2^32-row block origin != host rank4")
+    del otabs
+    seeders = []
+    for n in (1, 4):
+        seed_fn = dist.make_sharded_device_seeder([dev] * n, gpo, gfm, opt,
+                                                  table_sharded=True)
+        pipe.seed_fn = seed_fn
+        try:
+            got_sam = sam()
+        finally:
+            pipe.seed_fn = None
+        if got_sam != want_sam:
+            w, g = want_sam.splitlines(), got_sam.splitlines()
+            i = next((k for k, (a, b) in enumerate(zip(w, g)) if a != b),
+                     min(len(w), len(g)))
+            fail(f"table-sharded seeding at n_dev {n}: SAM differs from "
+                 f"host seeding at line {i}:\n{g[i:i + 1]}\n{w[i:i + 1]}")
+        seeders.append((n, seed_fn.stats.counts))
+    launches = dict(smem_sharded.launches)
+    want = {"bwt_smem_all_sh": sum(n * c["chunks"] for n, c in seeders),
+            "bwt_smem1_sh": sum(n * c["split_rounds"] for n, c in seeders),
+            "bwt_sa_sh": sum(n * c["chunks"] for n, c in seeders)}
+    if any(launches[k] != v for k, v in want.items()) \
+            or not all(launches.values()) or any(smem_cuda.launches.values()):
+        fail(f"table-sharded path: launches {launches}, want {want} and "
+             f"bwt_rank4_sh > 0; unsharded {dict(smem_cuda.launches)}")
+    log(f"table-sharded path: rank4 at a block origin of 2^26 == host "
+        f"rank4 on {len(o_rows)} rows; {sum(len(c) for c in chunks)} SE "
+        f"reads of phase 6 seeded at n_dev 1 and 4: SAM byte-identical to "
+        f"host seeding ({want_sam.count(chr(10))} lines); launches "
+        f"{launches}; seeder counts {seeders} ({time.time() - t0:.1f}s)")
+
+    # human scale: a synthetic 6.2 G-row index made on the card
+    del d, ssa, unsharded
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    hpo, hssa = human_scale_tables(dev)
+    torch.cuda.synchronize()
+    hd = smem_torch.DeviceOcc(hpo, dev)
+    gib = torch.cuda.memory_allocated(dev) / 2**30
+    log(f"human-scale index: {SH_N_ROWS} rows, sa_intv {SH_SA_INTV}, primary "
+        f"row {hpo.primary}, C {hpo.C.tolist()}; tables {gib:.2f} GiB on the "
+        f"card, made in {time.time() - t0:.1f}s")
+    hr = rng.integers(0, SH_N_ROWS + 1, 1_000_000)
+    edges = [np.arange(max(p - 64, 0), min(p + 65, SH_N_ROWS + 1))
+             for p in (1 << 31, 1 << 32, SH_N_ROWS)]
+    hrows = torch.from_numpy(np.concatenate([*edges, hr])[:1_000_000]
+                             .astype(np.int64)).to(dev)
+    hq, hql = lf_walk_reads(hd, SEED_B, READ_LEN, rng)
+    hx = rng.integers(0, READ_LEN, SEED_B)
+    hmi = rng.choice([1, 2, 5], SEED_B)
+    hmask = (rng.random(SEED_B) < 0.9).astype(np.uint8)
+    ht = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+          for k, v in (("q", hq), ("ql", hql), ("x", hx), ("mi", hmi),
+                       ("mask", hmask))}
+    cand = torch.from_numpy(rng.integers(0, SH_N_ROWS, 120_000)).to(dev)
+    _, done = smem_torch.sa_walk(hd, hssa, SH_SA_INTV, cand, max_it=256)
+    hsa = cand[done][:100_000].contiguous()
+    if len(hsa) < 100_000:
+        fail(f"only {len(hsa)} of {len(cand)} SA walks end within 256 steps")
+    x_eff = torch.where(ht["mask"].bool(), ht["x"], ht["ql"])
+    plain = {}
+    st = {}
+    plain["bwt_rank4_sh"], ms_r = timed_once(
+        lambda: smem_torch.rank4(hd, hrows))
+    plain["bwt_smem_all_sh"], ms_a = timed_once(
+        lambda: smem_torch.smem_all(hd, ht["q"], ht["ql"], msl, st))
+    st_all, st = st, {}
+    plain["bwt_smem1_sh"], ms_1 = timed_once(
+        lambda: smem_torch.pack_smem1(smem_torch.smem1(
+            hd, ht["q"], ht["ql"], x_eff, ht["mi"], st)))
+    st_1, st = st, {}
+    plain["bwt_sa_sh"], ms_s = timed_once(
+        lambda: smem_torch.sa_batch(hd, hssa, SH_SA_INTV, hsa, st))
+    st_sa = st
+    pa = plain["bwt_smem_all_sh"]
+    x0 = pa[:, 2 + 2 * smem_torch.ALL_CAP:2 + 3 * smem_torch.ALL_CAP]
+    filled = torch.arange(smem_torch.ALL_CAP, device=dev) < pa[:, :1]
+    n_hi = int(((x0 >= 1 << 31) & filled).sum())
+    if n_hi == 0:
+        fail("human scale: no SMEM emitted at a row >= 2^31")
+    log(f"human-scale plain version (one call each, CUDA events): rank4 "
+        f"{ms_r:.1f} ms, smem_all {ms_a:.1f} ms ({int(pa[:, 0].sum())} "
+        f"SMEMs, {n_hi} with x0 >= 2^31, {int(pa[:, 1].sum())} reads "
+        f"overflow), smem1 {ms_1:.1f} ms, sa_batch {ms_s:.1f} ms "
+        f"({st_sa.get('lf', 0)} LF steps)")
+    unsh = {
+        "bwt_smem_all_sh": lambda: smem_cuda.smem_all(hd, ht["q"], ht["ql"],
+                                                      msl),
+        "bwt_smem1_sh": lambda: smem_cuda.smem1(hd, ht["q"], ht["ql"],
+                                                ht["x"], ht["mi"],
+                                                ht["mask"]),
+        "bwt_sa_sh": lambda: smem_cuda.sa(hd, hssa, SH_SA_INTV, hsa)}
+    for name, fn in unsh.items():
+        got = fn()
+        torch.cuda.synchronize()
+        same(name, got, plain[name], "plain (unsharded kernel, human scale)")
+        log(f"{name[:-3]} (unsharded kernel on the 6.2 G-row table) == "
+            f"plain: {cuda_ms(fn, 5):.3f} ms")
+    stats = {"bwt_rank4_sh": {"rank4": len(hrows)},
+             "bwt_smem_all_sh": st_all, "bwt_smem1_sh": st_1,
+             "bwt_sa_sh": st_sa}
+    in_bytes = {"bwt_rank4_sh": 8 * len(hrows),
+                "bwt_smem_all_sh": hq.nbytes + hql.nbytes,
+                "bwt_smem1_sh": hq.nbytes + hql.nbytes + hx.nbytes
+                + hmi.nbytes + hmask.nbytes,
+                "bwt_sa_sh": 8 * len(hsa)}
+    for n in (1, 4):
+        tabs = smem_sharded.ShardedSeedTables(hpo, hssa, SH_SA_INTV,
+                                              [dev] * n)
+        v = tabs.view(dev)
+        kernels = {
+            "bwt_rank4_sh": lambda: smem_sharded.rank4(v, hrows),
+            "bwt_smem_all_sh": lambda: smem_sharded.smem_all(
+                v, ht["q"], ht["ql"], msl),
+            "bwt_smem1_sh": lambda: smem_sharded.smem1(
+                v, ht["q"], ht["ql"], ht["x"], ht["mi"], ht["mask"]),
+            "bwt_sa_sh": lambda: smem_sharded.sa(v, v.ssa, SH_SA_INTV, hsa)}
+        for name, fn in kernels.items():
+            got = fn()
+            torch.cuda.synchronize()
+            same(name, got, plain[name], f"plain (human scale, n_dev {n})")
+            ms = cuda_ms(fn, 5)
+            bound_ms, total = seed_bound(stats[name],
+                                         in_bytes[name] + 8 * got.numel())
+            log(f"{name} at n_dev {n} on the 6.2 G-row table == plain: "
+                f"{ms:.3f} ms; {stats[name].get('rank4', 0)} rank4 queries, "
+                f"{stats[name].get('lf', 0)} LF steps, {total} B -> bound "
+                f"{bound_ms:.4f} ms = {100 * bound_ms / ms:.2f}%")
+        del tabs, v, kernels
+        torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"human scale: every kernel == plain on rank4 ({len(hrows)} rows "
+        f"across 2^31, 2^32 and n_rows), the SMEM search ({SEED_B} LF-walk "
+        f"reads) and the SA walks ({len(hsa)} rows); peak device memory "
+        f"{peak:.2f} GiB (torch.cuda.max_memory_allocated)")
+    del hpo, hssa, hd, plain, hrows, ht, cand, hsa
+    torch.cuda.empty_cache()
+    log(f"seed-sh phase: {time.time() - t_phase:.1f}s")
+    return timing, launches
 
 
 def phase_gather(dev):
@@ -1197,8 +1706,10 @@ def phase_multi_device(tmp, run, dev_pe, dev):
         log(f"dry run over {[str(d) for d in devs]}: sharded raw_t kernel "
             f"step, SE chunk through the sharded raw_t, fused and fused_idx "
             f"backends, PE chunk through the sharded extension, rescue and "
-            f"CIGAR backends (shipped and resident), sharded seeder: every "
-            f"SAM == the single-device run's ({len(got['se'])} reads, "
+            f"CIGAR backends (shipped and resident), sharded seeder, "
+            f"table-sharded rank4 at a 2^32-row origin and table-sharded "
+            f"seeder: every SAM == the single-device run's "
+            f"({len(got['se'])} reads, "
             f"{len(got['pe'])} pairs; {time.time() - t0:.1f}s)")
 
     opt = MemOptions()      # the CLI's defaults
@@ -1397,11 +1908,12 @@ def main() -> int:
 
     timing, timing_i16 = phase_kernel(dev)
     timing_t, timing_t_i16 = phase_kernel_t(dev)
-    timing_seed = phase_seed_kernels(dev)
+    timing_seed, seed_gate = phase_seed_kernels(dev)
+    timing_sh, sh_launches = phase_seed_sharded(dev, seed_gate)
     if "--kernels-only" in sys.argv[1:]:
         print(json.dumps({"kernels": [timing, timing_t, timing_i16,
-                                      timing_t_i16, timing_seed]}),
-              flush=True)
+                                      timing_t_i16, timing_seed,
+                                      timing_sh]}), flush=True)
         return 0
     phase_gather(dev)
     tmp = tempfile.mkdtemp(prefix="bwamem_smoke_")
@@ -1449,7 +1961,14 @@ def main() -> int:
             "replaces": f"bwamem_tpu/ops/smem_jax.py:{line}",
             "launches": seed_launches[name], **timing_seed[name]}
            for name, line in (("bwt_smem_all", 312), ("bwt_smem1", 130),
-                              ("bwt_sa", 583))]}), flush=True)
+                              ("bwt_sa", 583))]
+        + [{"name": name, "route": "cuda",
+            "source": "bwamem_tpu_torch/csrc/fm_seed.cu",
+            "replaces": f"bwamem_tpu/ops/smem_sharded.py:{line}",
+            "launches": sh_launches[name], **timing_sh[name]}
+           for name, line in (("bwt_rank4_sh", 579), ("bwt_smem_all_sh", 436),
+                              ("bwt_smem1_sh", 254), ("bwt_sa_sh", 506))]}),
+        flush=True)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "bwamem_tpu"))
     if loaded:

@@ -23,6 +23,12 @@ sources (say csrc/ of an earlier commit) is built and timed as one more
 table, "against", on the entry points it has; a second and later DIR is
 listed as "against:" and its last path component.
 
+With `--seed`, it times the seeding kernels instead (bwt_smem_all,
+bwt_smem1, bwt_sa of csrc/fm_seed.cu on chip_smoke.py's phase-4 gate), as
+committed and in each `--against` DIR, in turns (committed, against, ...,
+then the reverse order), every output checked against the committed
+build's.
+
 It prints one line per batch: the band cells the inputs need, the bound
 chip_smoke.py computes from them, and each table's times in ms.  Nothing
 here is used by the port; the table that is committed is the one this
@@ -116,6 +122,83 @@ def reads_like_batch(rng):
     return ql, tl, qr, tr, scal
 
 
+def time_seed_kernels(libs, dev):
+    """The three seeding kernels of each library on chip_smoke.py's
+    phase-4 gate (2,048 reads over the smoke genome and the overflow
+    contig; bwt_smem1 at random x / min_intv / mask; bwt_sa on the gate's
+    seed rows), three rounds of turns, 20 launches a time."""
+    import torch
+
+    import _torch_gate as gate
+    import chip_smoke as cs
+    from bwamem_tpu_torch.config import MemOptions
+    from bwamem_tpu_torch.index.build import build_index
+    from bwamem_tpu_torch.index.occ_packed import pack_occ
+    from bwamem_tpu_torch.ops import smem_cuda, smem_torch
+
+    genome = np.random.default_rng(0).integers(0, 4, cs.GENOME_BP)
+    rng = np.random.default_rng(5)
+    hp, rep = gate.overflow_contig(rng)
+    fm = build_index(np.concatenate([genome, hp, rep]).astype(np.uint8))
+    po = pack_occ(fm)
+    reads = gate.seed_gate_reads(rng, genome, hp, rep, cs.SEED_B,
+                                 cs.READ_LEN)
+    mat, qlen = gate.read_matrix(reads)
+    B, L = mat.shape
+    x = rng.integers(0, np.maximum(qlen, 1))
+    x[:2] = 0
+    mi = rng.choice([1, 2, 5], B)
+    mask = (rng.random(B) < 0.9).astype(np.uint8)
+    opt = MemOptions()
+    d = smem_torch.DeviceOcc(po, dev)
+    progs = smem_cuda.Programs(d, fm.ssa, fm.sa_intv)
+    mems = smem_torch.collect_smems_device(
+        progs, fm, reads, opt.min_seed_len, smem_torch.split_len_of(opt),
+        opt.split_width)
+    _, sa_rows = smem_torch.occurrences(mems, opt.max_occ)
+    q, ql, xd, mid, maskd, rows = (torch.from_numpy(
+        np.ascontiguousarray(a)).to(dev) for a in (mat, qlen, x, mi, mask,
+                                                    sa_rows))
+    tables = (d.occ.data_ptr(), d.pk.data_ptr(), d.va.data_ptr(),
+              d.C.data_ptr(), d.primary, d.n_rows)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(lib, name):
+        if name == "bwt_smem_all":
+            out = torch.empty((B, smem_torch.ALL_COLS), dtype=torch.int64,
+                              device=dev)
+            rc = lib.bwt_smem_all(*tables, q.data_ptr(), L, ql.data_ptr(), B,
+                                  opt.min_seed_len, out.data_ptr(), stream)
+        elif name == "bwt_smem1":
+            out = torch.empty((B, smem_torch.SMEM1_COLS), dtype=torch.int64,
+                              device=dev)
+            rc = lib.bwt_smem1(*tables, q.data_ptr(), L, ql.data_ptr(),
+                               xd.data_ptr(), mid.data_ptr(),
+                               maskd.data_ptr(), B, out.data_ptr(), stream)
+        else:
+            out = torch.empty(len(rows), dtype=torch.int64, device=dev)
+            rc = lib.bwt_sa(*tables, progs.ssa.data_ptr(), len(progs.ssa),
+                            fm.sa_intv, rows.data_ptr(), len(rows),
+                            smem_torch.sa_max_it(d.n_rows), out.data_ptr(),
+                            stream)
+        if rc != 0:
+            sys.exit(f"{name} launch failed: {rc}")
+        return out
+
+    names = list(libs)
+    for name in ("bwt_smem_all", "bwt_smem1", "bwt_sa"):
+        want = launch(libs["committed"], name)
+        times = {n: [] for n in names}
+        for k in range(3):
+            for n in (names if k % 2 == 0 else names[::-1]):
+                if not torch.equal(launch(libs[n], name), want):
+                    sys.exit(f"{name}: {n} != committed")
+                times[n].append(round(cs.cuda_ms(
+                    lambda: launch(libs[n], name), 20), 4))
+        print(f"{name} on the phase-4 gate ({B} reads, {len(rows)} SA "
+              f"rows): ms by build {json.dumps(times)}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -141,9 +224,11 @@ def main() -> int:
                 return getattr(lib, fn) if hasattr(lib, fn) else self
         _build._bind(Present())
 
-    sources = {name: _build.CSRC for name in TABLES}
-    tables = dict(TABLES)
     argv = sys.argv[1:]
+    seed = "--seed" in argv
+    sources = {name: _build.CSRC for name in TABLES
+               if not seed or name == "committed"}
+    tables = {name: TABLES[name] for name in sources}
     for k, arg in enumerate(argv):
         if arg == "--against":
             name = "against" if "against" not in sources else \
@@ -157,7 +242,7 @@ def main() -> int:
         libs[name] = kl.lib
         print(f"{name}: built in {kl.build_seconds:.1f}s; "
               f"{cs.ptxas_summary(kl.log)}", flush=True)
-        if name == "committed":
+        if name == "committed" and not seed:
             print(f"{name}: row loop SASS lines "
                   f"{json.dumps(row_loop_sizes(_build._nvcc(), kl.path))}",
                   flush=True)
@@ -175,6 +260,11 @@ def main() -> int:
 
     def on_dev(*arrays):
         return [torch.from_numpy(x).to(dev) for x in arrays]
+
+    if seed:
+        time_seed_kernels(libs, dev)
+        shutil.rmtree(tmp, ignore_errors=True)
+        return 0
 
     prm0 = cs.PRM.copy()
     prm0[6] = 0

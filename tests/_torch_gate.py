@@ -236,6 +236,25 @@ def hard_fused_batch(seed, qmax, tmax=None, *, blk_l=128):
             scal, tmax2)
 
 
+def capacity_t_batch(seed=9):
+    """The reference hardware's caps as one per-phase batch (the JAX
+    package's tests/test_extend_pallas.py:130): 8 lanes, qlen 255 in a
+    256-column window, tlen 2047 in a 2048-row window, the query equal to
+    the target's prefix, band 100, h0 100.  Returns the (256, 8) /
+    (2048, 8) int8 windows, the (8, 8) scalars and the row bound."""
+    QM, TM, B = 256, 2048, 8
+    rng = np.random.default_rng(seed)
+    query = rng.integers(0, 4, (B, QM)).astype(np.int32)
+    target = np.zeros((B, TM), np.int32)
+    target[:, :QM] = query
+    target[:, QM:] = rng.integers(0, 4, (B, TM - QM))
+    scal = np.zeros((8, B), np.int32)
+    scal[:4] = [[255] * B, [2047] * B, [100] * B, [100] * B]
+    return (np.ascontiguousarray(query.T, np.int8),
+            np.ascontiguousarray(target.T, np.int8), scal,
+            np.array([2047], np.int32))
+
+
 def valid_l0_lanes(scal) -> np.ndarray:
     """Lanes whose first task (the fused L0, or the per-phase pass: both
     read qlen, tlen and h0 from scal rows 0, 1 and 3) the scalar oracle

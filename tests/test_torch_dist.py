@@ -13,7 +13,9 @@ lists of CPU devices, where every shard runs the plain PyTorch version:
 - the dry run `dryrun_multi_device([cpu] * 4)` passes, and its SE and PE
   SAM equal the JAX package's single-device SAM on the same reads;
 - the seeder's regimes: a reads-sharded regime forced at 2^31 rows or
-  more raises ValueError, the table-sharded regime NotImplementedError."""
+  more raises ValueError; 2^31 rows or more, or table_sharded=True,
+  route to the table-sharded seeder (ops/smem_sharded.py, held to the
+  JAX package by tests/test_torch_smem_sharded.py)."""
 
 import dataclasses
 import os
@@ -289,17 +291,33 @@ def test_seeder_rows_equal_single(seed_world, n):
     assert c["split_rounds"] >= 1 and c["ovf_reads"] >= 1 and len(want) > 200
 
 
-def test_seeder_regimes(world):
-    _, _, fm, po, _, _ = world
+def test_seeder_regimes(world, monkeypatch):
+    """A reads-sharded regime forced at 2^31 rows or more raises; an index
+    of 2^31 rows or more (a stub: n_rows = 2^31 + 7) and table_sharded=
+    True route to the table-sharded seeder, which seeds the world's reads
+    as the single-device seeder does."""
+    from bwamem_tpu_torch.ops import smem_sharded
+
+    _, _, fm, po, reads, _ = world
     opt = MemOptions()
     big = dataclasses.replace(po, n_rows=(1 << 31) + 7)
     with pytest.raises(ValueError, match="2\\^31"):
         dist.make_sharded_device_seeder(_cpus(2), big, fm, opt,
                                         table_sharded=False)
+    routed = []
+    real = smem_sharded.make_table_sharded_seeder
+
+    def spy(devices, p, fm_, opt_):
+        routed.append(int(p.n_rows))
+        return real(devices, po, fm_, opt_)
+
+    monkeypatch.setattr(smem_sharded, "make_table_sharded_seeder", spy)
+    want = smem_torch.make_device_seeder(po, fm, opt, CPU)(reads)
     for p, forced in ((big, None), (po, True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dist.make_sharded_device_seeder(_cpus(2), p, fm, opt,
-                                            table_sharded=forced)
+        seed_fn = dist.make_sharded_device_seeder(_cpus(2), p, fm, opt,
+                                                  table_sharded=forced)
+        _equal(seed_fn(reads), want)
+    assert routed == [(1 << 31) + 7, po.n_rows]
 
 
 def _jax_lines(world, pe):

@@ -209,6 +209,25 @@ def test_extend_t_matches_scalar_oracle():
                                      prm, lanes) == []
 
 
+def test_extend_t_at_the_capacity_limits():
+    """The reference hardware's caps (tests/test_extend_pallas.py:130):
+    qlen 255, tlen 2047, B = 8.  The plain extend_t == _extend_kernel_t
+    in interpret mode on all 8 rows and every lane, and fields 0-5 ==
+    ksw_extend_core on every lane."""
+    batch = gate.capacity_t_batch()
+    q, t, scal, tmax = batch
+    prm = _prm()
+    got = _plain_t(batch, prm)
+    want = np.asarray(extend_pallas.extend_batch_raw_t(
+        jnp.asarray(q.astype(np.int32)), jnp.asarray(t.astype(np.int32)),
+        jnp.asarray(scal), jnp.asarray(tmax), prm=jnp.asarray(prm),
+        blk_l=8, interpret=True))
+    assert np.array_equal(got, want)
+    n, bad = _oracle_mismatches(got, q, t, scal, prm)
+    assert n == 8 and bad == []
+    assert (got[0] >= 255 + 100).all()      # the whole query matched
+
+
 def _tasks(seed, B, qmax, tmax):
     """B row-major tasks (query (B, qmax), target (B, tmax) int32) with
     their lengths, bands, h0 and gap bounds; the last 7 are padding."""

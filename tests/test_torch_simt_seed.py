@@ -5,9 +5,14 @@ launchers (bwt_smem_all, bwt_smem1, bwt_sa) are held against the plain
 PyTorch version (ops/smem_torch.py) on the seeding gate batch of
 tests/_torch_gate.py: exact equality, overflowing reads included.  The
 kernel seeder's host flow over the g++-built launchers gives the C++
-engine's seed rows."""
+engine's seed rows.  The four launchers over block-range table shards
+(bwt_rank4_sh, bwt_smem_all_sh, bwt_smem1_sh, bwt_sa_sh; the tables of
+ops/smem_sharded.ShardedSeedTables on [cpu] * n, n in {1, 3, 8}) give the
+plain version's outputs on the whole index, and rank4 holds at a block
+origin of 2^26 (a 2^32-row offset)."""
 
 import ctypes
+import functools
 import os
 import subprocess
 
@@ -18,7 +23,7 @@ import torch
 from bwamem_tpu_torch.config import MemOptions
 from bwamem_tpu_torch.index.build import build_index
 from bwamem_tpu_torch.index.occ_packed import pack_occ
-from bwamem_tpu_torch.ops import _build, smem_torch
+from bwamem_tpu_torch.ops import _build, smem_sharded, smem_torch
 
 import _torch_gate as gate
 
@@ -158,3 +163,93 @@ def test_kernel_seeder_rows_match_native(lib, world):
     np.testing.assert_array_equal(got, want[:n])
     c = seed_fn.stats.counts
     assert c["ovf_reads"] >= 1 and c["split_rounds"] >= 1 and n > 200, c
+
+
+@pytest.fixture(scope="module")
+def plain(world):
+    """The plain version's outputs on the whole index, for the _sh cases:
+    {kernel: (inputs, output)}, computed once each."""
+    fm, po, d, reads = world
+    mat, qlen = gate.read_matrix(reads)
+    q, ql = torch.from_numpy(mat), torch.from_numpy(qlen)
+    rng = np.random.default_rng(9)
+    x = rng.integers(0, np.maximum(qlen, 1))
+    mi = rng.choice([1, 2, 5], len(qlen))
+    mask = (rng.random(len(qlen)) < 0.8).astype(np.uint8)
+    rows = rng.integers(0, po.n_rows + 1, 2048)
+    rows[:3] = [0, po.primary, po.n_rows]
+    rows_t = torch.from_numpy(rows)
+    ssa = torch.from_numpy(np.asarray(fm.ssa, np.int64))
+
+    @functools.cache
+    def get(kernel):
+        if kernel == "rank4":
+            return rows, smem_torch.rank4(d, rows_t).numpy()
+        if kernel == "smem_all":
+            return (q, ql), smem_torch.smem_all(d, q, ql, 19).numpy()
+        if kernel == "smem1":
+            want = smem_torch.pack_smem1(smem_torch.smem1(
+                d, q, ql, torch.from_numpy(np.where(mask, x, qlen)),
+                torch.from_numpy(mi))).numpy()
+            return (q, ql, x, mi, mask), want
+        sa_rows = np.minimum(rows, po.n_rows - 1)     # rows of the SA
+        return sa_rows, smem_torch.sa_batch(
+            d, ssa, fm.sa_intv, torch.from_numpy(sa_rows)).numpy()
+
+    return get
+
+
+def _run_sh(lib, tab, kernel, ins):
+    """The g++-built _sh launcher `kernel` over the shard table `tab`."""
+    t = ctypes.byref(tab)
+    if kernel in ("rank4", "sa"):
+        rows = np.ascontiguousarray(ins, np.int64)
+        out = np.zeros((len(rows), 4) if kernel == "rank4" else len(rows),
+                       np.int64)
+        rc = (lib.bwt_rank4_sh(t, rows.ctypes.data, len(rows),
+                               out.ctypes.data, None) if kernel == "rank4"
+              else lib.bwt_sa_sh(t, rows.ctypes.data, len(rows),
+                                 smem_torch.sa_max_it(tab.n_rows),
+                                 out.ctypes.data, None))
+    elif kernel == "smem_all":
+        q, ql = ins
+        B, L = q.shape
+        out = np.zeros((B, smem_torch.ALL_COLS), np.int64)
+        rc = lib.bwt_smem_all_sh(t, q.data_ptr(), L, ql.data_ptr(), B, 19,
+                                 out.ctypes.data, None)
+    else:
+        q, ql, x, mi, mask = ins
+        B, L = q.shape
+        out = np.zeros((B, smem_torch.SMEM1_COLS), np.int64)
+        rc = lib.bwt_smem1_sh(t, q.data_ptr(), L, ql.data_ptr(),
+                              x.ctypes.data, mi.ctypes.data,
+                              mask.ctypes.data, B, out.ctypes.data, None)
+    assert rc == 0
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 3, 8])
+@pytest.mark.parametrize("kernel", ["rank4", "smem_all", "smem1", "sa"])
+def test_sh_bodies_match_plain(lib, world, plain, kernel, n):
+    fm, po, _d, _ = world
+    tabs = smem_sharded.ShardedSeedTables(po, fm.ssa, fm.sa_intv,
+                                          [torch.device("cpu")] * n)
+    ins, want = plain(kernel)
+    got = _run_sh(lib, tabs.shard_table(), kernel, ins)
+    np.testing.assert_array_equal(got, want)
+    if kernel == "smem_all":
+        assert int(got[:, 1].sum()) >= 1 and int(got[:, 0].sum()) > 50
+    if kernel == "smem1":
+        assert int(got[:, 1].sum()) >= 1 and int(got[:, 2].sum()) > 20
+
+
+@pytest.mark.parametrize("n", [1, 3, 8])
+def test_rank4_sh_body_at_a_2_32_row_origin(lib, world, plain, n):
+    fm, po, _d, _ = world
+    origin = 1 << 26
+    tabs = smem_sharded.ShardedSeedTables(po, fm.ssa, fm.sa_intv,
+                                          [torch.device("cpu")] * n,
+                                          blk_origin=origin)
+    rows, want = plain("rank4")
+    got = _run_sh(lib, tabs.shard_table(), "rank4", rows + (origin << 6))
+    np.testing.assert_array_equal(got, want)

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-The sources in bwamem_tpu_torch/csrc/*.cu (the extension kernels and the
-seeding kernels of fm_seed.cu) have a plain C interface and include the
+The sources in bwamem_tpu_torch/csrc/*.cu (the extension kernels, the
+seeding kernels of fm_seed.cu, and the mate-rescue and CIGAR kernels of
+local_sw.cu and global_sw.cu) have a plain C interface and include the
 device code of csrc/*.cuh.  At first use each source is
 compiled by hand with nvcc for sm_90a, all at once (one nvcc process per
 source), and the objects are linked into one shared library under
@@ -60,6 +61,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn.restype = i32
         fn.argtypes = [vp, i32, vp, i32, vp, i64] + [i32] * 7 + [vp, vp]
     bind_seed(lib)
+    bind_sw(lib)
     lib.bwt_error_string.restype = ctypes.c_char_p
     lib.bwt_error_string.argtypes = [i32]
     lib.bwt_enable_peer_access.restype = i32
@@ -98,6 +100,34 @@ def bind_seed(lib: ctypes.CDLL) -> None:
     for fn in (lib.bwt_smem_all, lib.bwt_smem1, lib.bwt_sa, lib.bwt_rank4_sh,
                lib.bwt_smem_all_sh, lib.bwt_smem1_sh, lib.bwt_sa_sh):
         fn.restype = i32
+
+
+def bind_sw(lib: ctypes.CDLL) -> None:
+    """The launchers of csrc/local_sw.cu and csrc/global_sw.cu, and the
+    functions that give the bytes of device scratch each needs."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for fn in (lib.bwt_local_align6_scratch, lib.bwt_global_cigar_scratch):
+        fn.restype = i64
+        fn.argtypes = [i32, i32, i64]
+    lib.bwt_local_align6.restype = i32
+    lib.bwt_local_align6.argtypes = [vp, i32, vp, vp, i32, vp, i64, vp, vp,
+                                     vp, vp, vp]
+    lib.bwt_global_cigar.restype = i32
+    lib.bwt_global_cigar.argtypes = [vp, i32, vp, vp, i32, vp, vp, i64, vp,
+                                     vp, vp, vp, vp, vp]
+
+
+def launch(dev, fn: str, *args) -> None:
+    """Call the C launcher `fn` of the kernel library with `args` and dev's
+    current stream; raise if the launch failed."""
+    import torch
+
+    kl = load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(kl.lib, fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn} launch failed: {kl.lib.bwt_error_string(rc)}")
 
 
 def _run(procs) -> str:

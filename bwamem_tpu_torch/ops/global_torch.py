@@ -4,8 +4,10 @@ counterpart of bwamem_tpu/ops/global_jax.py.
 bwa runs ksw_global on the host after the extension to produce CIGARs;
 this is the device-side variant of that second pass, byte-identical in
 (score, CIGAR) to pipeline/cigar.ksw_global.  Plain PyTorch on tensors
-of one device: in the JAX package this is two `lax.scan`s outside any
-Pallas kernel, so there is no TPU kernel to replace.
+of one device: in the JAX package this is two `lax.scan`s under one jit,
+outside any Pallas kernel.  On a card every caller runs the kernel of
+csrc/global_sw.cu instead (ops/global_cuda), and `global_batch` is its
+plain version.
 
 - FILL: one Python iteration per target row, the whole query axis and
   every task vectorised.  In ksw_global2 the E/F recurrences open from M
@@ -172,9 +174,13 @@ def pack_cigar_round(score, steps):
 
 
 def _global_batch_host(device, query, qlen, target, tlen, w, mat, pens):
-    """global_batch of host arrays on `device`; (score, steps) tensors."""
-    return global_batch(*(to_device(x, np.int32, device)
-                          for x in (query, qlen, target, tlen, w, mat, pens)))
+    """global_batch of host arrays on `device` through the dispatcher
+    (ops/global_cuda: the kernel on a card); (score, steps) tensors."""
+    from bwamem_tpu_torch.ops import global_cuda
+
+    return global_cuda.global_batch(*(
+        to_device(x, np.int32, device)
+        for x in (query, qlen, target, tlen, w, mat, pens)))
 
 
 def make_cigar_backend(device):

@@ -8,7 +8,9 @@ PyTorch on tensors of one device: in the JAX package this is `lax.scan`
 and `lax.cummax` outside any Pallas kernel, so there is no TPU kernel
 to replace.  One Python iteration per target row, the whole query axis
 and every task of the wave vectorised; that is tens of thousands of
-small launches a wave on a GPU, which is what it costs today.
+small launches a wave on a GPU: on a card every caller runs the kernel
+of csrc/local_sw.cu instead (ops/local_cuda), and this is its plain
+version.
 
 - The local-SW F recurrence F(j+1) = max(F(j)-e_ins, H(j)-oe_ins, 0)
   looks serial because H(j) = max(Hdiag(j), F(j)), but
@@ -129,10 +131,13 @@ def align6(query, qlen, target, tlen, mat, pens):
 
 
 def _align6_host(device, query, qlen, target, tlen, mat, pens):
-    """align6 of host arrays on `device`; (6, B) int32 numpy."""
-    return align6(*(to_device(x, np.int32, device)
-                    for x in (query, qlen, target, tlen, mat, pens))
-                  ).cpu().numpy()
+    """align6 of host arrays on `device` through the dispatcher
+    (ops/local_cuda: the kernel on a card); (6, B) int32 numpy."""
+    from bwamem_tpu_torch.ops import local_cuda
+
+    return local_cuda.align6(*(to_device(x, np.int32, device)
+                               for x in (query, qlen, target, tlen, mat,
+                                         pens))).cpu().numpy()
 
 
 def make_rescue_backend(device):

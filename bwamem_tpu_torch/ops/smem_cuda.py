@@ -63,15 +63,9 @@ def _launch(name, dev, d: DeviceOcc, *args) -> None:
     d's tables; raise if the launch failed, count it if not."""
     from bwamem_tpu_torch.ops import _build
 
-    kl = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(kl.lib, name)(
-            d.occ.data_ptr(), d.pk.data_ptr(), d.va.data_ptr(),
-            d.C.data_ptr(), d.primary, d.n_rows, *args, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"{name} launch failed: {kl.lib.bwt_error_string(rc)}")
+    _build.launch(dev, name, d.occ.data_ptr(), d.pk.data_ptr(),
+                  d.va.data_ptr(), d.C.data_ptr(), d.primary, d.n_rows,
+                  *args)
     with _count_lock:
         launches[name] += 1
 

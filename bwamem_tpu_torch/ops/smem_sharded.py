@@ -180,14 +180,7 @@ def _launch(name, dev, d: ShardedOcc, *args) -> None:
     d's shards; raise if the launch failed, count it if not."""
     from bwamem_tpu_torch.ops import _build
 
-    kl = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(kl.lib, name)(ctypes.byref(d.tabs.shard_table()),
-                                   *args, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"{name} launch failed: {kl.lib.bwt_error_string(rc)}")
+    _build.launch(dev, name, ctypes.byref(d.tabs.shard_table()), *args)
     with _count_lock:
         launches[name] += 1
 

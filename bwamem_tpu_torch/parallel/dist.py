@@ -5,8 +5,9 @@ same functions over a `jax.sharding.Mesh`).
 
 A backend splits the lane (task) axis of each call into contiguous
 shards, one a device, runs the single-device function of the port on
-each shard (the CUDA kernels through ops/extend_cuda and ops/smem_cuda,
-the plain PyTorch versions on a CPU device) and concatenates the results
+each shard (the CUDA kernels through ops/extend_cuda, ops/smem_cuda,
+ops/local_cuda and ops/global_cuda, the plain PyTorch versions on a CPU
+device) and concatenates the results
 in shard order, so a call returns what the single-device backend returns
 for the whole batch.  What every lane reads is replicated: the scoring
 block, the two-strand reference text (one copy a distinct device), the
@@ -238,9 +239,10 @@ def make_sharded_fused_idx_backend(devices, params, pac, *,
 
 
 def _global_shards(devices, query, qlen, target, tlen, w, mat, pens):
-    """global_torch.global_batch of host arrays with the tasks split over
-    `devices`: (score (B,), steps (qmax + tmax, B)) CPU tensors."""
-    from bwamem_tpu_torch.ops.global_torch import global_batch
+    """global_cuda.global_batch (the kernel on a card, the plain version on
+    the CPU) of host arrays with the tasks split over `devices`: (score
+    (B,), steps (qmax + tmax, B)) CPU tensors."""
+    from bwamem_tpu_torch.ops.global_cuda import global_batch
 
     lanes = _lanes(query.shape[0], len(devices), len(devices), "global")
     mats, pens = _on_each(devices, mat, np.int32), _on_each(devices, pens,
@@ -255,7 +257,7 @@ def _global_shards(devices, query, qlen, target, tlen, w, mat, pens):
 
 def make_sharded_global_batch(devices, *, qmax: int, tmax: int):
     """The batched banded global alignment with traceback
-    (global_torch.global_batch) with the tasks split over `devices`:
+    (global_cuda.global_batch) with the tasks split over `devices`:
     fn(query (B, qmax), qlen, target (B, tmax), tlen, w, mat, pens) ->
     (score (B,), steps (qmax + tmax, B)) numpy, B a multiple of n_dev
     (`b_quantum`)."""
@@ -297,9 +299,9 @@ def make_sharded_rescue_backend(devices):
     """The host-shipped-window mate-rescue backend of NativePipeline's
     mp_rescue_* waves (local_torch.make_rescue_backend's contract:
     fn(seq_i8, rseq_i8, lens, mat, o_del, e_del, o_ins, e_ins) -> (6, Bp)
-    int32 numpy) with the batched local SW (local_torch.align6) split
-    over `devices`.  Bp a multiple of n_dev."""
-    from bwamem_tpu_torch.ops.local_torch import align6
+    int32 numpy) with the batched local SW (local_cuda.align6: the kernel
+    on a card) split over `devices`.  Bp a multiple of n_dev."""
+    from bwamem_tpu_torch.ops.local_cuda import align6
 
     devices = device_list(devices)
     n_dev = len(devices)

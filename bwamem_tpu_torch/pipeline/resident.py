@@ -13,7 +13,8 @@ extension kernel.  `make_fused_idx_backend` returns the callable that
 `make_cigar_idx_backend` (mp_cigar_* rounds) work the same way: the host
 ships a (6, Bp) or (8, Bp) meta block, the mate or query segments come
 out of the read matrix and the reference windows out of the text, both
-on the device, and ops/local_torch or ops/global_torch runs on them.
+on the device, and the kernels of ops/local_cuda or ops/global_cuda run
+on them.
 `make_resident_text` is called once and its tensor handed to every idx
 backend (`text_dev=`), so the reference is on the card once.
 
@@ -176,10 +177,11 @@ def rescue_idx_local(reads_nib, meta, mat, pens, text, *, qmax, tmax):
     """One resident-reference mate-rescue wave: gather the mate sequence
     from the read matrix (reverse-complemented in-lane when meta row 3 is
     set: 3 - q for codes < 4) and the reference window from the text,
-    then run the batched local SW (ops/local_torch.align6).  meta (6, B)
+    then run the batched local SW (ops/local_cuda.align6: the kernel on a
+    card, the plain version on the CPU).  meta (6, B)
     int32 rows: [l_ms, l_ts, read index, is_rev, win_lo20, win_hi]; all
     tensors on one device.  Returns (6, B) int32."""
-    from bwamem_tpu_torch.ops.local_torch import align6
+    from bwamem_tpu_torch.ops.local_cuda import align6
 
     j = torch.arange(qmax, device=meta.device, dtype=torch.int32)[None, :]
     rev = meta[3][:, None] == 1
@@ -220,10 +222,11 @@ def cigar_idx_local(reads_nib, meta, mat, pens, text, *, qmax, tmax):
     the read matrix and the reference segment from the text (both walked
     backwards for reverse-strand regions, as the host's gen_cigar_setup
     does), then run the batched banded global alignment with traceback
-    (ops/global_torch.global_batch).  meta (8, B) int32 rows: [qlen,
+    (ops/global_cuda.global_batch: the kernel on a card, the plain version
+    on the CPU).  meta (8, B) int32 rows: [qlen,
     tlen, w, read index, qcol0, is_rev, t_lo20, t_hi]; all tensors on one
     device.  Returns (score (B,), steps (qmax + tmax, B))."""
-    from bwamem_tpu_torch.ops.global_torch import global_batch
+    from bwamem_tpu_torch.ops.global_cuda import global_batch
 
     rev = meta[5] == 1
     sign = torch.where(rev, -1, 1).to(torch.int32)[:, None]

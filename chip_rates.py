@@ -16,9 +16,11 @@ holds the paths' output.
     python3 chip_rates.py --profile
 
 runs instead chip_smoke.py's 32,768 single-end reads once through each
-native path (--device-seed among them) under torch.profiler and prints
-the wall, the device time (all kernels and copies), the extension and
-seeding kernels' share of it and their launches.
+native path (--device-seed among them), and its 2,048 device-protocol
+pairs once with host rescue and CIGAR and once with --device-rescue
+--device-cigar, under torch.profiler and prints the wall, the device time
+(all kernels and copies), the extension, seeding, rescue and CIGAR
+kernels' share of it and their launches.
 """
 
 from __future__ import annotations
@@ -36,8 +38,9 @@ TURNS = (("resident", []), ("--phased", ["--phased"]),
          ("--ship-ref", ["--ship-ref"]), ("--device-seed", ["--device-seed"]))
 
 
-def profile(cs, common, fa, se) -> None:
-    """One profiled SE run per native path."""
+def profile(cs, common, fa, se, dev_pe) -> None:
+    """One profiled SE run per native path, and the device-protocol PE set
+    with host and with device rescue and CIGAR."""
     import time
 
     import torch
@@ -49,18 +52,24 @@ def profile(cs, common, fa, se) -> None:
 
     with prof(activities=[ProfilerActivity.CUDA]):   # the tracer's start-up
         torch.zeros(1, device="cuda").sum().item()
-    for name, flags in TURNS:
+    runs = [(name, flags, [se]) for name, flags in TURNS] + [
+        (f"PE device-protocol set {name}", flags, dev_pe)
+        for name, flags in (("host rescue and CIGAR", []),
+                            ("--device-rescue --device-cigar",
+                             ["--device-rescue", "--device-cigar"]))]
+    for name, flags, reads in runs:
         t0 = time.time()
         with prof(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as p:
-            cs.run_cli(["mem", *common, *flags, fa, se], os.devnull)
+            cs.run_cli(["mem", *common, *flags, fa, *reads], os.devnull)
             torch.cuda.synchronize()
         wall = time.time() - t0
         rows = [(e.key, dev_us(e), e.count) for e in p.key_averages()
                 if dev_us(e) > 0]
         total = sum(us for _, us, _ in rows)
         kern = [(k, us, n) for k, us, n in rows
-                if re.search(r"extend_|smem|sa_kernel", k)]
+                if re.search(r"extend_|smem|sa_kernel|local_align6|"
+                             r"global_cigar", k)]
         top = sorted(rows, key=lambda r: -r[1])[:6]
         print(f"profile {name}: wall {wall:.3f} s (mem with the profiler "
               f"on), device time {total / 1e3:.3f} ms = "
@@ -104,7 +113,8 @@ def main() -> int:
         rate("warm-up", [], [cs.head_fastq(se, os.path.join(tmp, "w.fq"),
                                            2048)])
         if profiling:
-            profile(cs, common, fa, se)
+            profile(cs, common, fa, se,
+                    cs.simulate_device_pairs(tmp, fa, cs.DEV_PE))
             return 0
         for ends, reads in (("SE", [se]), ("PE", [pe1, pe2])):
             for name, flags in TURNS + TURNS[::-1]:

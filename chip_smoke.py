@@ -6,7 +6,7 @@ Run from the root of the repository on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phases, each of which fails the run (exit code 1, no result line):
-  1. build   the eleven CUDA kernels from bwamem_tpu_torch/csrc with nvcc
+  1. build   the thirteen CUDA kernels from bwamem_tpu_torch/csrc with nvcc
              (one process per source, all at once);
   2. kernel  the fused extension kernel, with 32-bit cells (extend_fused)
              and with packed 16-bit cells (extend_fused_i16), each against
@@ -50,6 +50,16 @@ Phases, each of which fails the run (exit code 1, no result line):
              (some SMEM at a row >= 2^31) and 100,000 SA walks: the
              unsharded kernels and the _sh kernels at n_dev 1 and 4
              against the plain version; peak device memory logged;
+  4c. sw     the mate-rescue kernel (bwt_local_align6) and the CIGAR
+             kernel (bwt_global_cigar) against their plain versions
+             (local_torch.align6, global_torch.global_batch) on the same
+             CUDA tensors, every field of every lane: at the dev-fn shapes
+             (8192, 160, 512) and (2048, 160, 160), and on the hard-case
+             batches of tests/_torch_gate.py (an arbitrary 5x5 matrix,
+             ties, N codes, padding and best-0 lanes, narrow bands) at
+             those shapes, in a window for every group width of the
+             launch table and the memory row beyond it, and on lanes at
+             tmax 16384; both timed at the dev-fn shapes with their bound;
   5. gather  the resident-reference gathers on the GPU against the same
              gathers on the CPU at their edge cases;
   6. main    `python -m bwamem_tpu_torch index|mem` (in this process) on
@@ -84,15 +94,18 @@ Phases, each of which fails the run (exit code 1, no result line):
              SAM byte-identical to the plain `mem --backend cuda` run on
              the same files (host rescue, host CIGAR), rescue_w* and
              cigar_r* trace rows present where asked for, some CIGAR
-             with an I and some with a D;
+             with an I and some with a D; in each run bwt_local_align6
+             launches == rescue_w* rows and bwt_global_cigar launches ==
+             cigar_r* rows, ms a wave and a round beside the host finish;
  12. dev-seed all SE reads and pairs of phase 6 through `mem --backend cuda
              --device-seed`: SAM byte-identical to the host-seeded run,
              bwt_smem_all launches == chunks, bwt_smem1 == re-seed rounds,
              0 < bwt_sa <= chunks; the rates beside the host-seeded run's
              and the reads that took the exact host search;
  13. dev-fn  the plain PyTorch functions behind a wave and a round
-             (local_torch.align6, global_torch.global_batch) once each at
-             those runs' largest shapes: GPU == CPU, wall time, Python
+             (local_torch.align6, global_torch.global_batch) and their
+             kernels once each at those runs' largest shapes: plain GPU ==
+             CPU (the round), kernel == plain, wall time, Python
              iterations, kernel launches and device time;
  14. multi   the multi-device layer (parallel/dist.py): its dry run
              (parallel/dryrun.py, its table-sharded half included) over
@@ -104,7 +117,8 @@ Phases, each of which fails the run (exit code 1, no result line):
              device-protocol set through the sharded resident rescue and
              CIGAR backends and their host-shipped twins: every SAM
              byte-identical to the single-device run's, each kernel
-             launched n_dev times a call, each call's wall time logged;
+             (bwt_local_align6 and bwt_global_cigar too) launched n_dev
+             times a call, each call's wall time logged;
              two `mem` processes under the torch.distributed environment
              (WORLD_SIZE=2, LOCAL_RANK=0: two one-card hosts sharing the
              card), merged, byte-identical to the single run.
@@ -114,11 +128,14 @@ after.  Each extension kernel's bound is the larger of its band cells
 over PEAK_INT_OPS (with 16-bit cells: two cells an operation) and its
 bytes (inputs read once, outputs written once) over PEAK_BYTES; a seeding
 kernel's is bytes: 48 B a rank4 query and 8 B an LF step (counted by the
-plain version) with its inputs and outputs.  The `kernels` line gives the
+plain version) with its inputs and outputs; the mate-rescue and CIGAR
+kernels' is that of their cells (both fills' qlen x tlen, the second from
+the plain version's qe, te; the band cells of the fill) at
+INT_OPS_PER_CELL, or their bytes.  The `kernels` line gives the
 _sh kernels' smoke-scale times at n_dev 4.  The last line of standard
 output is {"ok": true, "device": {...}}.
 
-`python3 chip_smoke.py --kernels-only` stops after phase 4b.
+`python3 chip_smoke.py --kernels-only` stops after phase 4c.
 
 This script and everything it loads (the port, tests/_torch_gate.py)
 import neither JAX nor the JAX package; the run fails if either is among
@@ -201,13 +218,18 @@ def cuda_ms(fn, reps: int) -> float:
 def ptxas_summary(log_text):
     """`nvcc -Xptxas -v` output as one entry per kernel: its name (with
     the <group, strip, cell type> template arguments: i = int32_t, s =
-    int16_t), registers, and spill bytes where there are any."""
+    int16_t; <group, strip> for the rescue and CIGAR kernels), registers,
+    and spill bytes where there are any."""
     out, name = [], "?"
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = re.sub(r"^_Z\w*?\d+(extend_\w+?_kernel)(?:ILi(\d+)ELi"
                           r"(\d+)E(\w)E)?.*", r"\1<\2,\3,\4>", m.group(1))
+            sw = re.search(r"((?:local_align6|global_cigar)_kernel)ILi(\d+)"
+                           r"ELi(\d+)E", name)
+            if sw:     # <group, strip>; strip 0 is the memory row
+                name = f"{sw.group(1)}<{sw.group(2)},{sw.group(3)}>"
             seed = re.search(r"\d((?:smem_all|smem1|sa|rank4)_kernel)",
                              name)
             if seed:   # the _sh instantiations read a ShardedOcc
@@ -1058,6 +1080,180 @@ def phase_seed_sharded(dev, seed_gate):
     return timing, launches
 
 
+SW_LOCAL_SHAPE = (8192, 160, 512)   # a rescue wave's (Bp, qmax, tmax)
+SW_GLOBAL_SHAPE = (2048, 160, 160)  # a CIGAR round's
+# one window per group width and strip of sw_rows.cuh's launch table, the
+# memory row beyond it, and lanes at the wave protocol's largest window
+SW_HARD = ((24, 60), (50, 100), (100, 130), (160, 512), (180, 200),
+           (250, 90), (300, 200), (1100, 300))
+SW_LONG = (48, 160, 16384)         # (B, qmax, tmax)
+
+
+def dev_fn_batches(seed=4):
+    """The rescue wave and the CIGAR round of the dev-fn shapes (numpy,
+    the arguments of local_torch.align6 and global_torch.global_batch) at
+    bwa's defaults: 150-base queries planted with 2% substitutions at a
+    random place of their target; the last eighth of the lanes padding
+    (lengths 0; for the round qlen and tlen 1)."""
+    from bwamem_tpu_torch.config import MemOptions
+
+    rng = np.random.default_rng(seed)
+    opt = MemOptions()
+    mat = opt.mat.astype(np.int32)
+    pens = np.array([opt.o_del, opt.e_del, opt.o_ins, opt.e_ins], np.int32)
+
+    def tasks(B, qmax, tmax, qlen):
+        t = rng.integers(0, 4, (B, tmax)).astype(np.int32)
+        off = rng.integers(0, tmax - qlen + 1, B)
+        q = np.full((B, qmax), 4, np.int32)
+        q[:, :qlen] = t[np.arange(B)[:, None], off[:, None]
+                        + np.arange(qlen)]
+        mut = rng.random((B, qlen)) < 0.02
+        q[:, :qlen][mut] = rng.integers(0, 4, int(mut.sum()))
+        return q, t
+
+    B, qmax, tmax = SW_LOCAL_SHAPE
+    q, t = tasks(B, qmax, tmax, 150)
+    qlen = np.where(np.arange(B) < B - B // 8, 150, 0).astype(np.int32)
+    tlen = np.where(qlen > 0, tmax, 0).astype(np.int32)
+    local = (q, qlen, t, tlen, mat, pens)
+    B, qmax, tmax = SW_GLOBAL_SHAPE
+    q, t = tasks(B, qmax, tmax, 150)
+    qlen = np.where(np.arange(B) < B - B // 8, 150, 1).astype(np.int32)
+    tlen = np.where(qlen > 1, 156, 1).astype(np.int32)
+    w = np.full(B, 19, np.int32)
+    return local, (q, qlen, t, tlen, w, mat, pens)
+
+
+def local_cells(args, out):
+    """Cells of the two fills of bwt_local_align6 (qlen x tlen, then qe x
+    te of the plain version's result `out`)."""
+    q, qlen, t, tlen = (np.asarray(a) for a in args[:4])
+    qn = np.clip(qlen, 0, q.shape[1]).astype(np.int64)
+    tn = np.clip(tlen, 0, t.shape[1]).astype(np.int64)
+    out = np.asarray(out).astype(np.int64)
+    return int(qn @ tn + out[2] @ out[4])
+
+
+def global_cells(args):
+    """Band cells of bwt_global_cigar's fill: per lane and row i < tlen,
+    min(i + w + 1, qlen) - max(i - w, 0) with w = max(w, |tlen - qlen|)."""
+    qlen, tlen, w = (np.asarray(args[k]).astype(np.int64) for k in (1, 3, 4))
+    w = np.maximum(w, np.abs(tlen - qlen))
+    cells = 0
+    for i in range(int(tlen.max(initial=0))):
+        span = np.minimum(i + w + 1, qlen) - np.maximum(i - w, 0)
+        cells += int(np.where(i < tlen, np.maximum(span, 0), 0).sum())
+    return cells
+
+
+def sw_entry(name, ms, plain_ms, cells, tensors, n_out_bytes):
+    """The `kernels` entry of a mate-rescue or CIGAR kernel, logged: its
+    bound is the larger of the cells' operations (INT_OPS_PER_CELL a cell,
+    over PEAK_INT_OPS) and the bytes of `tensors` read once and
+    n_out_bytes written once (over PEAK_BYTES)."""
+    n_bytes = sum(x.numel() * x.element_size() for x in tensors) \
+        + n_out_bytes
+    ops_ms, bytes_ms = ops_bound_ms(cells, 1), 1e3 * n_bytes / PEAK_BYTES
+    bound_ms = max(ops_ms, bytes_ms)
+    log(f"{name}: kernel {ms:.3f} ms, plain PyTorch {plain_ms:.3f} ms (CUDA "
+        f"events); {cells} cells; bound {bound_ms:.4f} ms (operations "
+        f"{ops_ms:.4f} ms at {INT_OPS_PER_CELL} integer operations a cell "
+        f"over {PEAK_INT_OPS / 1e12:.2f} TOP/s; bytes {bytes_ms:.4f} ms for "
+        f"{n_bytes} B) = {100 * bound_ms / ms:.1f}% of the kernel's time")
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None, "cells": cells}
+
+
+def phase_sw_kernels(dev):
+    """4c: the mate-rescue kernel (bwt_local_align6) and the CIGAR kernel
+    (bwt_global_cigar) against their plain versions (local_torch.align6,
+    global_torch.global_batch) on the same CUDA tensors, every field of
+    every lane: at the dev-fn shapes (bwa's matrix), on the hard-case
+    batches of tests/_torch_gate.py (an arbitrary 5x5 matrix, ties, N
+    codes, padding and best-0 lanes, bands narrower than |tlen - qlen|)
+    in a window for every group width of the launch table and the memory
+    row beyond it, and on lanes at tmax 16384; then both timed at the
+    dev-fn shapes with their bound.  Returns {name: kernels entry}."""
+    import torch
+
+    import _torch_gate as gate
+    from bwamem_tpu_torch.ops import (global_cuda, global_torch, local_cuda,
+                                      local_torch)
+
+    def on(args):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in args]
+
+    def check_local(name, args):
+        t = on(args)
+        got = local_cuda.align6(*t)
+        torch.cuda.synchronize()
+        want = local_torch.align6(*t)
+        if not torch.equal(got, want):
+            bad = (got != want).nonzero()[:5].tolist()
+            fail(f"bwt_local_align6 != local_torch.align6 on {name}: first "
+                 f"(row, lane) {bad}")
+        w = want.cpu().numpy()
+        log(f"bwt_local_align6 == plain on all 6 rows x {w.shape[1]} lanes "
+            f"of {name} ({int((w[0] > 0).sum())} lanes with a score, "
+            f"{int((np.asarray(args[1]) == 0).sum())} padding)")
+        return t, w
+
+    def check_global(name, args):
+        t = on(args)
+        got = global_cuda.global_batch(*t)
+        torch.cuda.synchronize()
+        want = global_torch.global_batch(*t)
+        for g, w, what in zip(got, want, ("score", "steps")):
+            if not torch.equal(g, w):
+                bad = (g != w).nonzero()[:5].tolist()
+                fail(f"bwt_global_cigar != global_torch.global_batch on "
+                     f"{name}: {what} differs at {bad}")
+        st = want[1].cpu().numpy()
+        log(f"bwt_global_cigar == plain on the score and all "
+            f"{st.shape[0]} step rows x {st.shape[1]} lanes of {name} "
+            f"({int((st == 1).any(0).sum())} lanes with a D, "
+            f"{int((st == 2).any(0).sum())} with an I)")
+        return t
+
+    t0 = time.time()
+    local, glob = dev_fn_batches()
+    tl, wl = check_local(f"the dev-fn wave {SW_LOCAL_SHAPE}", local)
+    tg = check_global(f"the dev-fn round {SW_GLOBAL_SHAPE}", glob)
+    B = SW_LOCAL_SHAPE[0]
+    check_local(f"the hard cases at {SW_LOCAL_SHAPE}",
+                gate.local_sw_batch(31, *SW_LOCAL_SHAPE, n_pad=64))
+    check_global(f"the hard cases at {SW_GLOBAL_SHAPE}",
+                 gate.global_sw_batch(32, *SW_GLOBAL_SHAPE, n_pad=64))
+    for k, (qmax, tmax) in enumerate(SW_HARD):
+        check_local(f"the hard cases at (256, {qmax}, {tmax})",
+                    gate.local_sw_batch(40 + k, 256, qmax, tmax))
+        check_global(f"the hard cases at (256, {qmax}, {tmax})",
+                     gate.global_sw_batch(50 + k, 256, qmax, tmax))
+    args = gate.local_sw_batch(60, *SW_LONG)
+    args[3][:4] = SW_LONG[2]
+    check_local(f"lanes at tmax {SW_LONG[2]} (4 at tlen {SW_LONG[2]})", args)
+    args = gate.global_sw_batch(61, *SW_LONG)
+    check_global(f"lanes at tmax {SW_LONG[2]}", args)
+    log(f"sw gates: {time.time() - t0:.1f}s")
+
+    out = {"local_align6": sw_entry(
+        f"bwt_local_align6 at {SW_LOCAL_SHAPE}",
+        cuda_ms(lambda: local_cuda.align6(*tl), 20),
+        cuda_ms(lambda: local_torch.align6(*tl), 1), local_cells(local, wl),
+        tl, 4 * 6 * B)}
+    B, qmax, tmax = SW_GLOBAL_SHAPE
+    out["global_cigar"] = sw_entry(
+        f"bwt_global_cigar at {SW_GLOBAL_SHAPE}",
+        cuda_ms(lambda: global_cuda.global_batch(*tg), 20),
+        cuda_ms(lambda: global_torch.global_batch(*tg), 1),
+        global_cells(glob), tg, 4 * B + (qmax + tmax) * B)
+    return out
+
+
 def phase_gather(dev):
     import torch
 
@@ -1474,8 +1670,11 @@ def trace_sums(path):
 def phase_pe_device(tmp, run):
     """--device-rescue and --device-cigar (resident reference and
     --ship-ref) on the device-protocol PE set, and SE --device-cigar, each
-    against the plain `mem --backend cuda` run on the same files."""
-    from bwamem_tpu_torch.ops import extend_cuda
+    against the plain `mem --backend cuda` run on the same files; in each
+    run (counts set to 0 just before it) one bwt_local_align6 launch a
+    rescue_w* trace row and one bwt_global_cigar launch a cigar_r* row.
+    Returns the PE files and the launches of each kernel over the runs."""
+    from bwamem_tpu_torch.ops import extend_cuda, global_cuda, local_cuda
 
     pe = simulate_device_pairs(tmp, run["fa"], DEV_PE)
     common = ["--backend", "cuda", *run["common"]]
@@ -1503,27 +1702,39 @@ def phase_pe_device(tmp, run):
     n_waves = n_rounds = 0
     for label, reads, flags in runs:
         tag = f"dev_{label}_" + "_".join(x.strip("-") for x in flags)
+        local_cuda.reset_launches()
+        global_cuda.reset_launches()
         sam, kinds, _, _ = run_mem(tmp, tag, run["fa"], reads,
                                    [*common, *flags])
+        got = {"rescue_w": local_cuda.launches["local_align6"],
+               "cigar_r": global_cuda.launches["global_cigar"]}
         t = trace_sums(os.path.join(tmp, f"{tag}.trace.jsonl"))
         for flag, kind in (("--device-rescue", "rescue_w"),
                            ("--device-cigar", "cigar_r")):
             if (flag in flags) != (kind in t):
                 fail(f"{label} {' '.join(flags)}: trace rows {sorted(t)}")
+            if got[kind] != t.get(kind, (0,))[0]:
+                fail(f"{label} {' '.join(flags)}: {got[kind]} kernel "
+                     f"launches against {t.get(kind, (0,))[0]} {kind}* "
+                     f"trace rows")
         n = same_sam(plain[label], sam, f"{label} {' '.join(flags)} vs plain")
-        n_waves += t.get("rescue_w", (0,))[0]
-        n_rounds += t.get("cigar_r", (0,))[0]
+        n_waves += got["rescue_w"]
+        n_rounds += got["cigar_r"]
         log(f"{label} {' '.join(flags)}: SAM byte-identical to the plain run "
             f"(apart from @PG; {n} lines); "
-            + "; ".join(f"{k} {t[k][0]} rows {1e3 * t[k][1]:.1f} ms, largest "
+            + "; ".join(f"{k} {t[k][0]} rows == kernel launches, "
+                        f"{1e3 * t[k][1] / t[k][0]:.1f} ms a "
+                        f"{'wave' if k == 'rescue_w' else 'round'} "
+                        f"({1e3 * t[k][1]:.1f} ms in all), largest "
                         f"(Bp, qmax, tmax) {t[k][2]}"
                         for k in ("rescue_w", "cigar_r") if k in t)
             + f"; host finish {t['host_finish'][1]:.3f}s (plain "
               f"{sums[label]['host_finish'][1]:.3f}s)")
-    log(f"device protocols: {n_waves} rescue waves and {n_rounds} CIGAR "
-        f"rounds over {len(runs)} runs; extension launches "
+    log(f"device protocols: {n_waves} rescue waves (bwt_local_align6 "
+        f"launches) and {n_rounds} CIGAR rounds (bwt_global_cigar launches) "
+        f"over {len(runs)} runs; extension launches "
         f"{dict(extend_cuda.launches)}")
-    return pe
+    return pe, {"local_align6": n_waves, "global_cigar": n_rounds}
 
 
 def phase_device_seed(tmp, run, host_rates):
@@ -1578,36 +1789,20 @@ def phase_device_seed(tmp, run, host_rates):
 
 
 def phase_device_functions(dev):
-    """The device functions of the rescue waves and CIGAR rounds that are
-    plain PyTorch (no TPU kernel stands behind them): one call each at
-    the shapes phase_pe_device's largest wave and round have, against the
-    same call on the CPU, with its wall time and, from torch.profiler,
-    the kernels it launches and their device time."""
+    """The device functions behind a rescue wave and a CIGAR round, at the
+    shapes of phase_pe_device's largest wave and round: the plain PyTorch
+    function (local_torch.align6, global_torch.global_batch; on the card
+    against the same call on the CPU) and its kernel (bwt_local_align6,
+    bwt_global_cigar through ops/local_cuda and ops/global_cuda; against
+    the plain function on the card), each with its wall time and, from
+    torch.profiler, the kernels it launches and their device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from bwamem_tpu_torch.config import MemOptions
-    from bwamem_tpu_torch.ops import global_torch, local_torch
+    from bwamem_tpu_torch.ops import (global_cuda, global_torch, local_cuda,
+                                      local_torch)
 
-    rng = np.random.default_rng(4)
-    opt = MemOptions()
-    pens = np.array([opt.o_del, opt.e_del, opt.o_ins, opt.e_ins], np.int32)
-
-    def tasks(B, qmax, tmax, qlen):
-        """Queries of qlen bases planted with 2% substitutions at a
-        random place of their (tmax) target; the last 8th of the lanes
-        padding (lengths 0, or 1 for the global alignment)."""
-        t = rng.integers(0, 4, (B, tmax)).astype(np.int32)
-        off = rng.integers(0, tmax - qlen + 1, B)
-        q = np.full((B, qmax), 4, np.int32)
-        q[:, :qlen] = t[np.arange(B)[:, None], off[:, None]
-                        + np.arange(qlen)]
-        mut = rng.random((B, qlen)) < 0.02
-        q[:, :qlen][mut] = rng.integers(0, 4, int(mut.sum()))
-        return q, t
-
-    def timed(name, fn, shape, loops):
-        want = fn("cpu") if shape[0] <= 2048 else None
+    def timed(name, fn, shape, loops, want=None):
         got = fn(dev)                       # warm-up
         torch.cuda.synchronize()
         t0 = time.time()
@@ -1616,44 +1811,45 @@ def phase_device_functions(dev):
         wall = time.time() - t0
         if want is not None:
             for g, w in zip(got, want):
-                if not torch.equal(g.cpu(), w):
-                    fail(f"{name}: GPU != CPU at {shape}")
+                if not torch.equal(g.cpu(), w.cpu()):
+                    fail(f"{name}: != the reference at {shape}")
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn(dev)
             torch.cuda.synchronize()
-        rows = [(e.count, getattr(e, "self_device_time_total",
-                                  getattr(e, "self_cuda_time_total", 0)))
+        rows = [(e.key, e.count, getattr(e, "self_device_time_total",
+                                         getattr(e, "self_cuda_time_total",
+                                                 0)))
                 for e in prof.key_averages()]
-        rows = [(n, us) for n, us in rows if us > 0]
+        rows = [r for r in rows if r[2] > 0]
+        top = max(rows, key=lambda r: r[2], default=("none", 0, 0))
         log(f"{name} at (B, qmax, tmax)={shape}: {1e3 * wall:.1f} ms wall a "
             f"call (host clock around a synchronize), {loops} Python "
-            f"iterations, {sum(n for n, _ in rows)} kernel launches, "
-            f"{sum(us for _, us in rows) / 1e3:.1f} ms of device time "
-            f"(torch.profiler)"
-            + ("" if want is None else "; GPU == CPU"))
+            f"iterations, {sum(n for _, n, _ in rows)} kernel launches, "
+            f"{sum(us for _, _, us in rows) / 1e3:.3f} ms of device time "
+            f"(torch.profiler; the longest: {top[0][:60]}, {top[1]} "
+            f"launches, {top[2] / 1e3:.3f} ms)"
+            + ("" if want is None else "; == the reference"))
+        return got
 
-    def on(device, *arrays):
+    def on(device, arrays):
         return [torch.from_numpy(x).to(device) for x in arrays]
 
-    B, qmax, tmax = 8192, 160, 512
-    q, t = tasks(B, qmax, tmax, 150)
-    qlen = np.where(np.arange(B) < B - B // 8, 150, 0).astype(np.int32)
-    tlen = np.where(qlen > 0, tmax, 0).astype(np.int32)
-    timed("local_torch.align6 (a rescue wave)",
-          lambda d: (local_torch.align6(*on(d, q, qlen, t, tlen,
-                                            opt.mat.astype(np.int32),
-                                            pens)),),
-          (B, qmax, tmax), 2 * tmax)
-    B, qmax, tmax = 2048, 160, 160
-    q, t = tasks(B, qmax, tmax, 150)
-    t = np.ascontiguousarray(t[:, :tmax])
-    qlen = np.where(np.arange(B) < B - B // 8, 150, 1).astype(np.int32)
-    tlen = np.where(qlen > 1, 156, 1).astype(np.int32)
-    w = np.full(B, 19, np.int32)
-    timed("global_torch.global_batch (a CIGAR round)",
-          lambda d: global_torch.global_batch(
-              *on(d, q, qlen, t, tlen, w, opt.mat.astype(np.int32), pens)),
-          (B, qmax, tmax), tmax + qmax + tmax)
+    local, glob = dev_fn_batches()
+    shape = SW_LOCAL_SHAPE
+    want = (local_torch.align6(*on("cpu", local)),) if shape[0] <= 2048 \
+        else None
+    plain = timed("local_torch.align6 (a rescue wave)",
+                  lambda d: (local_torch.align6(*on(d, local)),), shape,
+                  2 * shape[2], want)
+    timed("bwt_local_align6 (ops/local_cuda.align6)",
+          lambda d: (local_cuda.align6(*on(d, local)),), shape, 0, plain)
+    shape = SW_GLOBAL_SHAPE
+    want = global_torch.global_batch(*on("cpu", glob))
+    plain = timed("global_torch.global_batch (a CIGAR round)",
+                  lambda d: global_torch.global_batch(*on(d, glob)), shape,
+                  2 * shape[2] + shape[1], want)
+    timed("bwt_global_cigar (ops/global_cuda.global_batch)",
+          lambda d: global_cuda.global_batch(*on(d, glob)), shape, 0, plain)
 
 
 def timed_calls(fn):
@@ -1691,7 +1887,8 @@ def phase_multi_device(tmp, run, dev_pe, dev):
     from bwamem_tpu_torch.config import MemOptions
     from bwamem_tpu_torch.index.occ_packed import pack_occ
     from bwamem_tpu_torch.io.fastq import iter_fastq_chunks
-    from bwamem_tpu_torch.ops import extend_cuda, smem_cuda
+    from bwamem_tpu_torch.ops import (extend_cuda, global_cuda, local_cuda,
+                                      smem_cuda)
     from bwamem_tpu_torch.ops.types import params_from_options
     from bwamem_tpu_torch.parallel import dist
     from bwamem_tpu_torch.parallel.dryrun import dryrun_multi_device
@@ -1823,16 +2020,24 @@ def phase_multi_device(tmp, run, dev_pe, dev):
                  dist.make_sharded_rescue_backend(devs),
                  dist.make_sharded_cigar_backend(devs))):
             rescue, cigar = timed_calls(rescue), timed_calls(cigar)
+            local_cuda.reset_launches()
+            global_cuda.reset_launches()
             same(want_dpe, pe_text(dpe, ext, rescue, cigar),
                  f"device-protocol PE, sharded {name} rescue and CIGAR at "
                  f"n_dev {n}")
-            if not rescue.walls or not cigar.walls:
+            got = (local_cuda.launches["local_align6"],
+                   global_cuda.launches["global_cigar"])
+            if (not rescue.walls or not cigar.walls
+                    or got != (n * len(rescue.walls), n * len(cigar.walls))):
                 fail(f"sharded {name} rescue and CIGAR at n_dev {n}: "
-                     f"{len(rescue.walls)} waves, {len(cigar.walls)} rounds")
+                     f"{len(rescue.walls)} waves, {len(cigar.walls)} rounds, "
+                     f"launches (local_align6, global_cigar) {got}")
             log(f"sharded {name} rescue and CIGAR at n_dev {n}: records == "
-                f"the single-device run's; rescue waves "
-                f"{wall_summary(rescue.walls)}; CIGAR rounds "
-                f"{wall_summary(cigar.walls)}")
+                f"the single-device run's; bwt_local_align6 launches "
+                f"{got[0]} == {n} x {len(rescue.walls)} waves, "
+                f"bwt_global_cigar {got[1]} == {n} x {len(cigar.walls)} "
+                f"rounds; rescue waves {wall_summary(rescue.walls)}; CIGAR "
+                f"rounds {wall_summary(cigar.walls)}")
 
     # two processes, each its shard from the torch.distributed environment
     sub = os.path.join(tmp, "se_sub.fq")
@@ -1910,10 +2115,11 @@ def main() -> int:
     timing_t, timing_t_i16 = phase_kernel_t(dev)
     timing_seed, seed_gate = phase_seed_kernels(dev)
     timing_sh, sh_launches = phase_seed_sharded(dev, seed_gate)
+    timing_sw = phase_sw_kernels(dev)
     if "--kernels-only" in sys.argv[1:]:
         print(json.dumps({"kernels": [timing, timing_t, timing_i16,
                                       timing_t_i16, timing_seed,
-                                      timing_sh]}), flush=True)
+                                      timing_sh, timing_sw]}), flush=True)
         return 0
     phase_gather(dev)
     tmp = tempfile.mkdtemp(prefix="bwamem_smoke_")
@@ -1927,7 +2133,7 @@ def main() -> int:
             ("extend_fused",))
         _, rates_py = phase_python_host(tmp, run)
         launches_i16, launches_t_i16 = phase_i16_path(run, dev)
-        dev_pe = phase_pe_device(tmp, run)
+        dev_pe, sw_launches = phase_pe_device(tmp, run)
         seed_launches, rates_seed = phase_device_seed(tmp, run, rates)
         phase_device_functions(dev)
         phase_multi_device(tmp, run, dev_pe, dev)
@@ -1967,7 +2173,14 @@ def main() -> int:
             "replaces": f"bwamem_tpu/ops/smem_sharded.py:{line}",
             "launches": sh_launches[name], **timing_sh[name]}
            for name, line in (("bwt_rank4_sh", 579), ("bwt_smem_all_sh", 436),
-                              ("bwt_smem1_sh", 254), ("bwt_sa_sh", 506))]}),
+                              ("bwt_smem1_sh", 254), ("bwt_sa_sh", 506))]
+        + [{"name": name, "route": "cuda",
+            "source": f"bwamem_tpu_torch/csrc/{src}",
+            "replaces": f"bwamem_tpu/ops/{ref}",
+            "launches": sw_launches[name], **timing_sw[name]}
+           for name, src, ref in (
+               ("local_align6", "local_sw.cu", "local_jax.py:90"),
+               ("global_cigar", "global_sw.cu", "global_jax.py:53"))]}),
         flush=True)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "bwamem_tpu"))

@@ -1,9 +1,10 @@
 // A host stand-in for <cuda_runtime.h>, for compiling the port's CUDA
 // sources with g++ and running them on the CPU: the pass body
-// (bwamem_tpu_torch/csrc/band_pass.cuh, see simt_emulate.cpp) and the
-// seeding kernels (csrc/fm_seed.cu, whose launchers loop over the grid when
-// they are not compiled by nvcc).  It declares only what those sources
-// use.  The threads of one group of the pass run as cooperative fibers of
+// (bwamem_tpu_torch/csrc/band_pass.cuh, see simt_emulate.cpp), the
+// mate-rescue and CIGAR bodies (csrc/local_sw.cuh, global_sw.cuh, see
+// simt_sw_emulate.cpp) and the seeding kernels (csrc/fm_seed.cu, whose
+// launchers loop over the grid when they are not compiled by nvcc).  It
+// declares only what those sources use.  The threads of one group of the pass run as cooperative fibers of
 // one OS thread; every warp-level primitive is a collective that parks the
 // calling fiber until the whole group has arrived.
 
@@ -14,6 +15,7 @@
 #include <cstdint>
 
 #define __device__
+#define __host__
 #define __global__
 #define __forceinline__ inline
 #define __launch_bounds__(n)
@@ -23,7 +25,7 @@ enum { cudaErrorInvalidValue = 1 };
 struct SimtIdx {
   unsigned x;
 };
-inline SimtIdx threadIdx, blockIdx, blockDim;
+inline SimtIdx threadIdx, blockIdx, blockDim, gridDim;
 
 namespace simt {
 // Every fiber of the running group hands in `v`; returns the array of all
@@ -42,6 +44,9 @@ inline int __shfl_up_sync(unsigned, int v, unsigned delta, int) {
   const int* all = simt::collective(v);
   return me >= (int)delta ? all[me - (int)delta] : v;
 }
+
+// a barrier of the group (the fibers run in turn, so memory is in order)
+inline void __syncwarp(unsigned = 0xffffffffu) { simt::collective(0); }
 
 inline int __reduce_max_sync(unsigned, int v) {
   const int* all = simt::collective(v);

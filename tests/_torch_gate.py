@@ -4,7 +4,8 @@ batch of hard cases built for the cooperating-threads pass (strip edges,
 long gaps, ties, trims), and the check of one pass's fields against the
 scalar bwa-0.7.8 oracle (the port's own numpy `ksw_extend_core`).  For
 the seeding kernels: a contig made to overflow their slots and a read
-batch over it.
+batch over it.  For the mate-rescue and CIGAR kernels: batches of
+local and of banded global alignment tasks with their hard cases.
 Shared by the tests of the port and chip_smoke.py (which puts this
 directory on sys.path); imports numpy and the port only."""
 
@@ -342,3 +343,129 @@ def read_matrix(reads):
     for b, r in enumerate(reads):
         mat[b, :len(r)] = r
     return mat, qlen
+
+
+def _sw_scoring(rng, arbitrary):
+    """(mat (5, 5), pens [o_del, e_del, o_ins, e_ins]) int32: bwa's matrix
+    at a random a, b, or an arbitrary signed one (every entry its own
+    value, positive diagonal)."""
+    if arbitrary:
+        mat = rng.integers(-6, 5, (5, 5))
+        mat[np.arange(4), np.arange(4)] = rng.integers(1, 4, 4)
+    else:
+        mat = build_mat(int(rng.integers(1, 4)), int(rng.integers(1, 6)))
+    pens = [int(rng.integers(1, 8)), int(rng.integers(1, 4)),
+            int(rng.integers(1, 8)), int(rng.integers(1, 4))]
+    return np.asarray(mat, np.int32), np.asarray(pens, np.int32)
+
+
+def _mutate(rng, s, n_sub, n_indel=0):
+    s = s.copy()
+    for _ in range(n_sub):
+        s[rng.integers(0, len(s))] = rng.integers(0, 4)
+    for _ in range(n_indel if len(s) > 8 else 0):
+        k, dl = int(rng.integers(0, len(s))), int(rng.integers(1, 5))
+        s = (np.concatenate([s[:k], s[k + dl:]]) if rng.random() < 0.5
+             else np.concatenate([s[:k], rng.integers(0, 4, dl), s[k:]]))
+    return s if len(s) else rng.integers(0, 4, 1)
+
+
+def _pack_tasks(tasks, B, qmax, tmax):
+    q = np.full((B, qmax), 4, np.int32)
+    t = np.full((B, tmax), 4, np.int32)
+    qlen = np.zeros(B, np.int32)
+    tlen = np.zeros(B, np.int32)
+    for b, (qs, ts) in enumerate(tasks):
+        qs, ts = qs[:qmax], ts[:tmax]
+        q[b, :len(qs)], t[b, :len(ts)] = qs, ts
+        qlen[b], tlen[b] = len(qs), len(ts)
+    return q, qlen, t, tlen
+
+
+def local_sw_batch(seed, B, qmax, tmax, *, arbitrary=True, n_pad=3):
+    """A mate-rescue wave of B tasks (the arguments of local_torch.align6,
+    numpy int32): query (B, qmax), qlen, target (B, tmax), tlen, mat, pens.
+    Mostly rescue-like lanes (the mate a mutated copy of a stretch of its
+    window, some with indels), then the hard cases: a query of one repeated
+    unit against several copies (ties: the first row and the leftmost
+    column decide), N codes, full windows, a lane with no positive cell
+    (best 0), queries of one and two bases, and n_pad padding lanes (qlen
+    and tlen 0) at the end."""
+    rng = np.random.default_rng(seed)
+    mat, pens = _sw_scoring(rng, arbitrary)
+    n = B - n_pad
+    tasks = []
+    for k in range(n):
+        tl = int(rng.integers(1, tmax + 1))
+        ql = int(rng.integers(1, qmax + 1))
+        kind = k % 8
+        if kind == 0:      # ties
+            unit = rng.integers(0, 4, int(rng.integers(2, 6)))
+            qs = np.resize(unit, ql)
+            ts = np.resize(unit, tl)
+        elif kind == 1:    # unrelated, N codes
+            qs, ts = rng.integers(0, 5, ql), rng.integers(0, 5, tl)
+        elif kind == 2:    # full windows
+            ts = rng.integers(0, 4, tmax)
+            p = int(rng.integers(0, max(tmax - qmax, 0) + 1))
+            qs = _mutate(rng, ts[p:p + qmax], 3)
+            qs = np.concatenate([qs, rng.integers(0, 4, qmax)])[:qmax]
+        elif kind == 3:    # no positive cell
+            qs = np.full(ql, 4)
+            ts = rng.integers(0, 4, tl)
+        elif kind == 4:    # one or two bases
+            ts = rng.integers(0, 4, tl)
+            qs = ts[:int(rng.integers(1, 3))].copy()
+        else:              # rescue-like
+            ts = rng.integers(0, 4, tl)
+            p = int(rng.integers(0, tl))
+            qs = _mutate(rng, ts[p:p + ql], int(rng.integers(0, 5)),
+                         int(rng.integers(0, 2)))
+            if rng.random() < 0.2:
+                ts[rng.integers(0, tl)] = 4
+        tasks.append((np.asarray(qs), np.asarray(ts)))
+    tasks += [(np.zeros(0, np.int64), np.zeros(0, np.int64))] * n_pad
+    if arbitrary:      # mat[4, :] and mat[:, 4] < 0: an all-N query scores 0
+        mat[4, :] = mat[:, 4] = -1
+    return (*_pack_tasks(tasks, B, qmax, tmax), mat, pens)
+
+
+def global_sw_batch(seed, B, qmax, tmax, *, arbitrary=True, n_pad=3):
+    """A CIGAR round of B tasks (the arguments of global_torch.global_batch,
+    numpy int32): query (B, qmax), qlen, target (B, tmax), tlen, w, mat,
+    pens.  Related pairs with substitutions and indels (tlen above and
+    below qlen), bands narrower than |tlen - qlen| and wide ones, N codes,
+    unrelated pairs, one-base queries and targets, full windows, and n_pad
+    padding lanes (qlen, tlen and w 0, as the round protocol pads)."""
+    rng = np.random.default_rng(seed)
+    mat, pens = _sw_scoring(rng, arbitrary)
+    n = B - n_pad
+    tasks, ws = [], []
+    for k in range(n):
+        kind = k % 6
+        if kind == 0:      # one-base query or target
+            qs = rng.integers(0, 4, 1 if rng.random() < 0.5
+                              else int(rng.integers(1, qmax + 1)))
+            ts = rng.integers(0, 4, 1 if len(qs) > 1
+                              else int(rng.integers(1, tmax + 1)))
+        elif kind == 1:    # unrelated, N codes
+            qs = rng.integers(0, 5, int(rng.integers(1, qmax + 1)))
+            ts = rng.integers(0, 5, int(rng.integers(1, tmax + 1)))
+        elif kind == 2:    # full windows
+            ts = rng.integers(0, 4, tmax)
+            qs = _mutate(rng, ts[:qmax], 4, 2)
+            qs = np.concatenate([qs, rng.integers(0, 4, qmax)])[:qmax]
+        else:              # related, with indels
+            ql = int(rng.integers(1, qmax + 1))
+            ts = rng.integers(0, 4, min(ql, tmax))
+            qs = _mutate(rng, ts, int(rng.integers(0, 5)),
+                         int(rng.integers(0, 4)))
+            if rng.random() < 0.2:
+                qs[rng.integers(0, len(qs))] = 4
+        tasks.append((np.asarray(qs), np.asarray(ts)))
+        ws.append(int(rng.integers(0, 16)) if rng.random() < 0.8
+                  else int(rng.integers(16, 200)))
+    tasks += [(np.zeros(0, np.int64), np.zeros(0, np.int64))] * n_pad
+    ws += [0] * n_pad
+    q, qlen, t, tlen = _pack_tasks(tasks, B, qmax, tmax)
+    return q, qlen, t, tlen, np.asarray(ws, np.int32), mat, pens

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels (bwamem_tpu_torch/csrc/extend_fused.cu,
-extend_t.cu; 32-bit cells and packed 16-bit cells) against their plain
-PyTorch versions on the same CUDA tensors, exact on every row and lane,
-the 16-bit kernels against the 32-bit ones, and the port's backend on the GPU
-against the same backend on the CPU.  The tests marked `cuda` need an NVIDIA
+extend_t.cu; 32-bit cells and packed 16-bit cells; local_sw.cu and
+global_sw.cu) against their plain PyTorch versions on the same CUDA
+tensors, exact on every row and lane, the 16-bit kernels against the
+32-bit ones, and the port's backend on the GPU against the same backend on
+the CPU; a kernel library that fails to build raises.  The tests marked `cuda` need an NVIDIA
 GPU and skip without one; run them on the card with
 `python -m pytest --noconftest tests/test_torch_cuda.py -q` (this file
 needs no JAX; tests/conftest.py imports it)."""
@@ -17,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from bwamem_tpu_torch.ops import extend_cuda, extend_torch
+from bwamem_tpu_torch.ops import (extend_cuda, extend_torch, global_cuda,
+                                  global_torch, local_cuda, local_torch)
 
 import _torch_gate as gate
 
@@ -185,3 +187,53 @@ def test_failed_build_raises(tmp_path, monkeypatch, nvcc):
         _build.load()
     assert _build._loaded is None
     assert os.listdir(tmp_path / "build") == []
+
+
+def _sw_call(kind, dev):
+    """(dispatcher, plain version, its launches dict and key, the CUDA
+    arguments) of the mate-rescue ("local") or CIGAR ("global") kernel at
+    the dev-fn shapes, on the hard-case batch of tests/_torch_gate.py."""
+    if kind == "local":
+        args = gate.local_sw_batch(23, 8192, 160, 512, n_pad=64)
+        return (local_cuda.align6, local_torch.align6, local_cuda.launches,
+                "local_align6",
+                [torch.from_numpy(a).to(dev) for a in args])
+    args = gate.global_sw_batch(24, 2048, 160, 160, n_pad=64)
+    return (global_cuda.global_batch, global_torch.global_batch,
+            global_cuda.launches, "global_cigar",
+            [torch.from_numpy(a).to(dev) for a in args])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["local", "global"])
+def test_sw_kernel_matches_plain(cuda, kind):
+    """bwt_local_align6 / bwt_global_cigar == the plain version at the
+    dev-fn shapes, in one launch; tensors on two devices raise."""
+    fn, plain, launches, key, args = _sw_call(kind, cuda)
+    before = launches[key]
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert launches[key] == before + 1
+    want = plain(*args)
+    for g, w in zip(got if kind == "global" else [got],
+                    want if kind == "global" else [want]):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError):
+        fn(*args[:-2], args[-2].cpu(), args[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["local", "global"])
+def test_sw_failed_build_raises(cuda, tmp_path, monkeypatch, kind):
+    """No fallback: with a kernel library that cannot be built, a CUDA call
+    of either dispatcher raises and launches nothing."""
+    from bwamem_tpu_torch.ops import _build
+
+    fn, _, launches, key, args = _sw_call(kind, cuda)
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_loaded", None)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "false")
+    before = launches[key]
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fn(*args)
+    assert launches[key] == before

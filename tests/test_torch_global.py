@@ -4,8 +4,12 @@ JAX package's (ops/global_jax.py) and the scalar oracle
 pipeline/cigar.ksw_global, on the cases of tests/test_global_jax.py; the
 round triple of pack_cigar_round; and the resident-reference CIGAR round
 (pipeline/resident.cigar_idx_local) against the JAX package's on one meta
-block with reverse lanes.  Inputs are made from a seed with numpy; scores
+block with reverse lanes; the dispatcher of the kernel
+(ops/global_cuda.global_batch) on the CPU, and that every device caller of
+the port goes through it.  Inputs are made from a seed with numpy; scores
 and CIGARs must be equal."""
+
+import ast
 
 import numpy as np
 import pytest
@@ -17,10 +21,13 @@ from bwamem_tpu.config import MemOptions
 from bwamem_tpu.ops import global_jax
 from bwamem_tpu.pipeline import native_driver as ref_native
 from bwamem_tpu.pipeline.cigar import ksw_global
-from bwamem_tpu_torch.ops import global_torch
+from bwamem_tpu_torch.ops import global_cuda, global_torch
 from bwamem_tpu_torch.pipeline import resident
 
 from test_global_jax import _rand_task
+from test_torch_local import _port_modules, plain_calls
+
+import _torch_gate as gate
 
 torch.set_num_threads(1)
 
@@ -171,3 +178,41 @@ def test_cigar_idx_local_matches_jax_package():
     assert (np.asarray(w_score)[:n_live] > meta[0, :n_live] - 40).all()
     cig = global_torch.rle_cigars(g_steps.numpy())
     assert any(op in (1, 2) for c in cig[:n_live] for op, _ in c)
+
+
+@pytest.mark.parametrize("arbitrary", [True, False],
+                         ids=["arbitrary_matrix", "bwa_matrix"])
+def test_dispatcher_on_cpu_is_the_plain_version(arbitrary):
+    """global_cuda.global_batch on CPU tensors == global_torch.global_batch
+    == global_jax._global_batch on the hard-case batch of
+    tests/_torch_gate.py, and counts no launch."""
+    args = gate.global_sw_batch(9, 48, 64, 96, arbitrary=arbitrary)
+    t = [torch.from_numpy(a) for a in args]
+    before = dict(global_cuda.launches)
+    score, steps = global_cuda.global_batch(*t)
+    assert global_cuda.launches == before
+    assert score.dtype == torch.int32 and steps.dtype == torch.int8
+    assert steps.shape == (64 + 96, 48)
+    ws, wst = global_torch.global_batch(*t)
+    assert torch.equal(score, ws) and torch.equal(steps, wst)
+    js, jst = global_jax._global_batch(*(jnp.asarray(a) for a in args),
+                                       qmax=64, tmax=96)
+    assert np.array_equal(score.numpy(), np.asarray(js))
+    assert np.array_equal(steps.numpy(), np.asarray(jst))
+    assert (steps.numpy() == 1).any(0).sum() >= 3
+    assert (steps.numpy() == 2).any(0).sum() >= 3
+
+
+def test_device_callers_go_through_the_dispatcher():
+    """No module of the port but ops/global_cuda.py calls the plain
+    global_torch.global_batch: the resident and shipped CIGAR backends,
+    their sharded twins and ksw_global_batch (the Python host's
+    --device-cigar) reach the kernel through global_cuda.global_batch."""
+    assert plain_calls("global_torch", ("global_batch",), "global_cuda",
+                       {}) == []
+    users = {rel for rel, tree in _port_modules() for node in ast.walk(tree)
+             if isinstance(node, (ast.ImportFrom, ast.Attribute))
+             and "global_cuda" in ast.dump(node)}
+    for rel in ("pipeline/resident.py", "parallel/dist.py",
+                "ops/global_torch.py"):
+        assert rel in users, rel

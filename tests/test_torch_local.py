@@ -4,8 +4,13 @@ local_torch.py, mate-rescue compute) against the JAX package's
 cases of tests/test_local_jax.py (random matrices and penalties, ties,
 N codes, empty tasks), and the resident-reference rescue wave
 (pipeline/resident.rescue_idx_local) against the JAX package's on one
-meta block with reverse lanes and window edges.  Inputs are made from a
-seed with numpy; every value is an integer and must be equal."""
+meta block with reverse lanes and window edges; the dispatcher of the
+kernel (ops/local_cuda.align6) on the CPU, and that every device caller
+of the port goes through it.  Inputs are made from a seed with numpy;
+every value is an integer and must be equal."""
+
+import ast
+import os
 
 import numpy as np
 import pytest
@@ -17,10 +22,12 @@ from bwamem_tpu.config import MemOptions
 from bwamem_tpu.ops import local_jax
 from bwamem_tpu.ops.local_ref import ksw_align
 from bwamem_tpu.pipeline import native_driver as ref_native
-from bwamem_tpu_torch.ops import local_torch
+from bwamem_tpu_torch.ops import local_cuda, local_torch
 from bwamem_tpu_torch.pipeline import resident
 
 from test_local_jax import _rand_task
+
+import _torch_gate as gate
 
 torch.set_num_threads(1)
 
@@ -172,3 +179,81 @@ def test_rescue_idx_local_matches_jax_package():
     assert (want[0, n_live:] == 0).all()
     # the related lanes found their copy (the text is a fifth N)
     assert np.median(want[0, :n_live:2]) > 2 * np.median(want[0, 1:n_live:2])
+
+
+@pytest.mark.parametrize("arbitrary", [True, False],
+                         ids=["arbitrary_matrix", "bwa_matrix"])
+def test_dispatcher_on_cpu_is_the_plain_version(arbitrary):
+    """local_cuda.align6 on CPU tensors == local_torch.align6 ==
+    local_jax._align6 on the hard-case batch of tests/_torch_gate.py, and
+    counts no launch (only a kernel launch counts)."""
+    args = gate.local_sw_batch(8, 48, 64, 160, arbitrary=arbitrary)
+    t = [torch.from_numpy(a) for a in args]
+    before = dict(local_cuda.launches)
+    got = local_cuda.align6(*t)
+    assert local_cuda.launches == before
+    assert got.dtype == torch.int32 and got.shape == (6, 48)
+    assert torch.equal(got, local_torch.align6(*t))
+    want = np.asarray(local_jax._align6(*(jnp.asarray(a) for a in args),
+                                        qmax=64, tmax=160))
+    assert np.array_equal(got.numpy(), want)
+    assert (want[0] > 0).sum() >= 30 and (want[:, -3:] == 0).all()
+
+
+def _port_modules():
+    root = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "bwamem_tpu_torch")
+    for d, _, names in os.walk(root):
+        for n in sorted(names):
+            if n.endswith(".py"):
+                path = os.path.join(d, n)
+                with open(path) as f:
+                    yield os.path.relpath(path, root), ast.parse(f.read())
+
+
+def plain_calls(plain_mod, names, dispatcher, owner_calls):
+    """(file, line, what) of every use of the plain functions `names` of
+    ops/`plain_mod`.py outside the dispatcher ops/`dispatcher`.py: an
+    import of them, an attribute `plain_mod.name`, or inside the plain
+    module a call by name other than those `owner_calls` allows
+    ({function: names it may call}: the plain version's own parts)."""
+    bad = []
+    for rel, tree in _port_modules():
+        if rel == os.path.join("ops", dispatcher + ".py"):
+            continue
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.ImportFrom) and node.module
+                    and node.module.endswith("ops." + plain_mod)):
+                bad += [(rel, node.lineno, a.name) for a in node.names
+                        if a.name in names]
+            elif (isinstance(node, ast.Attribute) and node.attr in names
+                  and getattr(node.value, "id", "") == plain_mod):
+                bad.append((rel, node.lineno, f"{plain_mod}.{node.attr}"))
+        if rel != os.path.join("ops", plain_mod + ".py"):
+            continue
+        for fn in tree.body:
+            if not isinstance(fn, ast.FunctionDef):
+                continue
+            for node in ast.walk(fn):
+                if (isinstance(node, ast.Call)
+                        and getattr(node.func, "id", "") in names
+                        and node.func.id not in owner_calls.get(fn.name, ())):
+                    bad.append((rel, node.lineno, f"{fn.name} calls "
+                                f"{node.func.id}"))
+    return bad
+
+
+def test_device_callers_go_through_the_dispatcher():
+    """No module of the port but ops/local_cuda.py calls the plain
+    local_torch.align6 / fill: the resident and shipped rescue backends,
+    their sharded twins and ksw_align_batch reach the kernel through
+    local_cuda.align6 (align6 itself runs fill twice: that is the plain
+    version)."""
+    assert plain_calls("local_torch", ("align6", "fill"), "local_cuda",
+                       {"align6": ("fill",)}) == []
+    users = {rel for rel, tree in _port_modules() for node in ast.walk(tree)
+             if isinstance(node, (ast.ImportFrom, ast.Attribute))
+             and "local_cuda" in ast.dump(node)}
+    for rel in ("pipeline/resident.py", "parallel/dist.py",
+                "ops/local_torch.py"):
+        assert rel in users, rel

@@ -136,6 +136,8 @@ def _imports(tree):
 def test_no_port_file_imports_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 30
+    for mod in ("local_cuda.py", "global_cuda.py", "smem_cuda.py"):
+        assert os.path.join(ROOT, "bwamem_tpu_torch", "ops", mod) in files
     bad = []
     for path in files:
         with open(path) as f:

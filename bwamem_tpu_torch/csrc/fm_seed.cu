@@ -1,13 +1,13 @@
 // Device seeding for Hopper (sm_90a): the SMEM search and the SA walks of
-// `mem --device-seed`, one thread per read (bwt_smem_all, bwt_smem1) or
-// per SA row (bwt_sa), and the same kernels over an index split by block
-// range over several cards (the _sh entries).
+// `mem --device-seed`, a warp per read (bwt_smem_all, bwt_smem1) or a
+// thread per SA row (bwt_sa), and the same kernels over an index split by
+// block range over several cards (the _sh entries).
 //
 // Replaces the JAX package's three XLA programs (bwamem_tpu/ops/smem_jax.py;
 // XLA, not Pallas):
 // - bwt_smem_all: _smem_all_kernel, the whole first round of every read.
-//   The thread walks its read's start pointer (an N run skipped at once),
-//   runs smem1_dev at each frontier, and appends the SMEMs of length >=
+//   The warp walks its read's start pointer (an N run skipped at once),
+//   runs smem1_warp at each frontier, and appends the SMEMs of length >=
 //   min_seed_len in the host path's order (each call's emissions
 //   reversed).  Row b of out: [cnt, ovf, qb[128], qe[128], x0[128],
 //   x1[128], s[128]] int64, slots past cnt 0; past 128 seeds ovf is set.
@@ -32,18 +32,24 @@
 // with int64 positions.  The same outputs as the Occ kernels, row for row.
 //
 // What bounds it: each extension step is a pair of rank4 queries whose
-// addresses depend on the step before, so a thread runs at the latency of
-// its gathers (from L2 when the tables fit its 50 MB), not at the card's
-// memory rate.  A thread per read is the simple design; a warp per read,
-// the tables' L2 residency and overlap with the extension kernel are later
-// work.  The slot arrays (24 live intervals, 64 emissions) are local
-// memory.
+// addresses depend on the step before, so a read runs at the latency of
+// its chain of gathers (from L2 when the tables fit its 50 MB), not at the
+// card's memory rate.  A warp per read, four reads a block, puts a
+// 2,048-read chunk on 512 blocks over the 132 SMs, holds the live
+// intervals one a lane in registers, and runs a backward step's
+// extensions of every live interval at once, so a step costs one round
+// of gathers; the forward pass stays one chain, each step's two gathers
+// split over eight lanes.  A call's
+// emissions are kept in the warp's shared memory (bwt_smem_all) or
+// written straight into the row (bwt_smem1); rows are zeroed by the warp.
+// What bounds it still is each read's chain of dependent gathers; not yet
+// done: the tables pinned in L2, and overlap with the extension kernel.
 //
 // Plain C interface, loaded with ctypes (ops/_build.py); each launcher
-// returns cudaGetLastError().  The same file compiles with g++ against the
-// host stand-in of <cuda_runtime.h> in tests/_simt/: each launcher then
-// runs its grid in a loop on the calling thread (tests/
-// test_torch_simt_seed.py).
+// returns cudaGetLastError().  tests/_simt/simt_seed_emulate.cpp compiles
+// this file with g++ against the host stand-in of <cuda_runtime.h> in
+// tests/_simt/, with its own FM_LAUNCH that runs each warp of the grid as
+// fibers (tests/test_torch_simt_seed.py).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -53,32 +59,37 @@
 namespace {
 
 using fmseed::kAllCap;
+using fmseed::kFull;
 using fmseed::kMCap;
 using fmseed::Occ;
 using fmseed::ShardedOcc;
 
-constexpr int kBlock = 64;
+constexpr int kWarps = 4;                  // reads a block (SMEM kernels)
+constexpr int kWarpBlock = 32 * kWarps;
+constexpr int kRowBlock = 64;              // rows a block (SA, rank4)
+
+// This thread's read and lane: warp w of block k runs read k * kWarps + w.
+__device__ __forceinline__ int64_t warp_read() {
+  return (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+}
 
 __device__ __forceinline__ int64_t thread_index() {
   return (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
 }
 
-// The first-round loop is the kernel's own body, not a device function:
-// moved into one, the Occ kernel took 72 registers instead of 64 and ran
-// 7% slower on chip_smoke.py's gate on an H100 (chip_tune.py --seed,
-// against this body).
 template <class Tab>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kWarpBlock)
     smem_all_kernel(Tab ix, const uint8_t* __restrict__ q, int L,
                     const int64_t* __restrict__ qlen, int64_t B,
                     int64_t min_seed_len, int64_t* __restrict__ out) {
-  const int64_t b = thread_index();
+  __shared__ int64_t em_all[kWarps][5 * kMCap];  // one call's emissions
+  const int64_t b = warp_read();
   if (b >= B) return;
+  const int lane = (int)(threadIdx.x & 31u);
+  int64_t* em = em_all[threadIdx.x >> 5];
   const uint8_t* qr = q + b * L;
   const int64_t len = qlen[b];
   int64_t* row = out + b * (2 + 5 * kAllCap);
-  for (int k = 0; k < 2 + 5 * kAllCap; ++k) row[k] = 0;
-  int64_t m[5 * kMCap];
   int64_t x = 0, cnt = 0;
   bool ovf = false;
   while (x < len) {
@@ -86,46 +97,66 @@ __global__ void __launch_bounds__(kBlock)
       while (x < L && qr[x] > 3) ++x;
       continue;
     }
-    const fmseed::Smem1 r = fmseed::smem1_dev(ix, qr, len, x, 1, m);
-    int64_t total = 0;
-    for (int k = r.n - 1; k >= 0; --k) {
-      if (m[1 * kMCap + k] - m[k] < min_seed_len) continue;
-      const int64_t slot = cnt + total++;
-      if (slot >= kAllCap) continue;
-      for (int f = 0; f < 5; ++f) row[2 + f * kAllCap + slot] = m[f * kMCap + k];
+    const fmseed::Smem1 r = fmseed::smem1_warp(ix, qr, len, x, 1, em);
+    __syncwarp();
+    // the call's emissions reversed and length-filtered: emission k (lanes
+    // k and k - 32 hold k) goes to slot cnt + the kept emissions above k
+    bool keep[2];
+    unsigned bal[2];
+    for (int h = 0; h < 2; ++h) {
+      const int k = lane + 32 * h;
+      keep[h] = k < r.n && em[kMCap + k] - em[k] >= min_seed_len;
+      bal[h] = __ballot_sync(kFull, keep[h]);
     }
-    cnt += total;
+    const unsigned long long kept =
+        bal[0] | (unsigned long long)bal[1] << 32;
+    for (int h = 0; h < 2; ++h) {
+      const int k = lane + 32 * h;
+      const int64_t slot = cnt + __popcll(kept >> k >> 1);
+      if (keep[h] && slot < kAllCap)
+        for (int f = 0; f < 5; ++f)
+          row[2 + f * kAllCap + slot] = em[f * kMCap + k];
+    }
+    cnt += __popcll(kept);
     ovf = ovf || r.ovf || cnt > kAllCap;
     if (cnt > kAllCap) cnt = kAllCap;
     x = r.ret;
+    __syncwarp();  // every lane has read em before the next call writes it
   }
-  row[0] = cnt;
-  row[1] = ovf;
+  for (int k = lane; k < 5 * kAllCap; k += 32)
+    if (k % kAllCap >= cnt) row[2 + k] = 0;
+  if (lane == 0) {
+    row[0] = cnt;
+    row[1] = ovf;
+  }
 }
 
 template <class Tab>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kWarpBlock)
     smem1_kernel(Tab ix, const uint8_t* __restrict__ q, int L,
                  const int64_t* __restrict__ qlen,
                  const int64_t* __restrict__ x,
                  const int64_t* __restrict__ min_intv,
                  const uint8_t* __restrict__ mask, int64_t B,
                  int64_t* __restrict__ out) {
-  const int64_t b = thread_index();
+  const int64_t b = warp_read();
   if (b >= B) return;
+  const int lane = (int)(threadIdx.x & 31u);
   int64_t* row = out + b * (3 + 5 * kMCap);
   const int64_t xb = mask[b] ? x[b] : qlen[b];
   const fmseed::Smem1 r =
-      fmseed::smem1_dev(ix, q + b * L, qlen[b], xb, min_intv[b], row + 3);
-  for (int f = 0; f < 5; ++f)
-    for (int k = r.n; k < kMCap; ++k) row[3 + f * kMCap + k] = 0;
-  row[0] = r.ret;
-  row[1] = r.ovf;
-  row[2] = r.n;
+      fmseed::smem1_warp(ix, q + b * L, qlen[b], xb, min_intv[b], row + 3);
+  for (int k = lane; k < 5 * kMCap; k += 32)
+    if (k % kMCap >= r.n) row[3 + k] = 0;
+  if (lane == 0) {
+    row[0] = r.ret;
+    row[1] = r.ovf;
+    row[2] = r.n;
+  }
 }
 
 template <class Tab>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kRowBlock)
     sa_kernel(Tab ix, const int64_t* __restrict__ ssa, int64_t n_ssa,
               int64_t sa_intv, const int64_t* __restrict__ rows, int64_t n,
               int64_t max_it, int64_t* __restrict__ out) {
@@ -134,7 +165,7 @@ __global__ void __launch_bounds__(kBlock)
   out[k] = fmseed::sa_value_dev(ix, ssa, n_ssa, sa_intv, rows[k], max_it);
 }
 
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kRowBlock)
     rank4_kernel(ShardedOcc ix, const int64_t* __restrict__ rows, int64_t n,
                  int64_t* __restrict__ out) {
   const int64_t k = thread_index();
@@ -152,31 +183,21 @@ Occ make_occ(const void* occ, const void* pk, const void* va, const void* C,
 
 }  // namespace
 
-// A grid of ceil(n / kBlock) blocks of kBlock threads on `stream`; under
-// g++ the same grid in a loop.
-#ifdef __CUDACC__
-#define FM_LAUNCH(kernel, n, stream, ...)                                  \
+// ceil(n / per_block) blocks of `threads` threads on `stream`.
+#ifndef FM_LAUNCH
+#define FM_LAUNCH(kernel, n, per_block, threads, stream, ...)              \
   do {                                                                     \
     if ((n) <= 0) return 0;                                                \
-    kernel<<<(unsigned)(((n) + kBlock - 1) / kBlock), kBlock, 0,           \
-             static_cast<cudaStream_t>(stream)>>>(__VA_ARGS__);            \
+    kernel<<<(unsigned)(((n) + (per_block) - 1) / (per_block)), (threads), \
+             0, static_cast<cudaStream_t>(stream)>>>(__VA_ARGS__);         \
     return (int)cudaGetLastError();                                        \
   } while (0)
-#else
-#define FM_LAUNCH(kernel, n, stream, ...)                                  \
-  do {                                                                     \
-    (void)(stream);                                                        \
-    blockDim.x = kBlock;                                                   \
-    for (int64_t blk = 0; blk * kBlock < (n); ++blk) {                     \
-      blockIdx.x = (unsigned)blk;                                          \
-      for (unsigned t = 0; t < (unsigned)kBlock; ++t) {                    \
-        threadIdx.x = t;                                                   \
-        kernel(__VA_ARGS__);                                               \
-      }                                                                    \
-    }                                                                      \
-    return 0;                                                              \
-  } while (0)
 #endif
+// a warp per read, or a thread per row
+#define FM_LAUNCH_READS(kernel, n, stream, ...) \
+  FM_LAUNCH(kernel, n, kWarps, kWarpBlock, stream, __VA_ARGS__)
+#define FM_LAUNCH_ROWS(kernel, n, stream, ...) \
+  FM_LAUNCH(kernel, n, kRowBlock, kRowBlock, stream, __VA_ARGS__)
 
 extern "C" {
 
@@ -187,7 +208,7 @@ int bwt_smem_all(const void* occ, const void* pk, const void* va,
                  const void* C, long long primary, long long n_rows,
                  const void* q, int L, const void* qlen, long long B,
                  long long min_seed_len, void* out, void* stream) {
-  FM_LAUNCH(smem_all_kernel<Occ>, (int64_t)B, stream,
+  FM_LAUNCH_READS(smem_all_kernel<Occ>, (int64_t)B, stream,
             make_occ(occ, pk, va, C, primary, n_rows),
             static_cast<const uint8_t*>(q), L,
             static_cast<const int64_t*>(qlen), (int64_t)B,
@@ -200,7 +221,7 @@ int bwt_smem1(const void* occ, const void* pk, const void* va, const void* C,
               long long primary, long long n_rows, const void* q, int L,
               const void* qlen, const void* x, const void* min_intv,
               const void* mask, long long B, void* out, void* stream) {
-  FM_LAUNCH(smem1_kernel<Occ>, (int64_t)B, stream,
+  FM_LAUNCH_READS(smem1_kernel<Occ>, (int64_t)B, stream,
             make_occ(occ, pk, va, C, primary, n_rows),
             static_cast<const uint8_t*>(q), L,
             static_cast<const int64_t*>(qlen),
@@ -216,7 +237,7 @@ int bwt_sa(const void* occ, const void* pk, const void* va, const void* C,
            long long primary, long long n_rows, const void* ssa,
            long long n_ssa, long long sa_intv, const void* rows, long long n,
            long long max_it, void* out, void* stream) {
-  FM_LAUNCH(sa_kernel<Occ>, (int64_t)n, stream,
+  FM_LAUNCH_ROWS(sa_kernel<Occ>, (int64_t)n, stream,
             make_occ(occ, pk, va, C, primary, n_rows),
             static_cast<const int64_t*>(ssa), (int64_t)n_ssa,
             (int64_t)sa_intv, static_cast<const int64_t*>(rows), (int64_t)n,
@@ -228,7 +249,7 @@ int bwt_sa(const void* occ, const void* pk, const void* va, const void* C,
 // in [0, n_rows]; out (n, 4) int64.
 int bwt_rank4_sh(const ShardedOcc* tab, const void* rows, long long n,
                  void* out, void* stream) {
-  FM_LAUNCH(rank4_kernel, (int64_t)n, stream, *tab,
+  FM_LAUNCH_ROWS(rank4_kernel, (int64_t)n, stream, *tab,
             static_cast<const int64_t*>(rows), (int64_t)n,
             static_cast<int64_t*>(out));
 }
@@ -237,7 +258,7 @@ int bwt_rank4_sh(const ShardedOcc* tab, const void* rows, long long n,
 int bwt_smem_all_sh(const ShardedOcc* tab, const void* q, int L,
                     const void* qlen, long long B, long long min_seed_len,
                     void* out, void* stream) {
-  FM_LAUNCH(smem_all_kernel<ShardedOcc>, (int64_t)B, stream, *tab,
+  FM_LAUNCH_READS(smem_all_kernel<ShardedOcc>, (int64_t)B, stream, *tab,
             static_cast<const uint8_t*>(q), L,
             static_cast<const int64_t*>(qlen), (int64_t)B,
             (int64_t)min_seed_len, static_cast<int64_t*>(out));
@@ -247,7 +268,7 @@ int bwt_smem_all_sh(const ShardedOcc* tab, const void* q, int L,
 int bwt_smem1_sh(const ShardedOcc* tab, const void* q, int L,
                  const void* qlen, const void* x, const void* min_intv,
                  const void* mask, long long B, void* out, void* stream) {
-  FM_LAUNCH(smem1_kernel<ShardedOcc>, (int64_t)B, stream, *tab,
+  FM_LAUNCH_READS(smem1_kernel<ShardedOcc>, (int64_t)B, stream, *tab,
             static_cast<const uint8_t*>(q), L,
             static_cast<const int64_t*>(qlen),
             static_cast<const int64_t*>(x),
@@ -260,7 +281,7 @@ int bwt_smem1_sh(const ShardedOcc* tab, const void* q, int L,
 // gives up (0) after max_it steps.
 int bwt_sa_sh(const ShardedOcc* tab, const void* rows, long long n,
               long long max_it, void* out, void* stream) {
-  FM_LAUNCH(sa_kernel<ShardedOcc>, (int64_t)n, stream, *tab, nullptr,
+  FM_LAUNCH_ROWS(sa_kernel<ShardedOcc>, (int64_t)n, stream, *tab, nullptr,
             tab->n_ssa, tab->sa_intv, static_cast<const int64_t*>(rows),
             (int64_t)n, (int64_t)max_it, static_cast<int64_t*>(out));
 }

@@ -1,5 +1,7 @@
-// FM-index seeding on the device, one thread per read or per SA row: the
-// __device__ functions of fm_seed.cu, templated on the table type.
+// FM-index seeding on the device: the __device__ functions of fm_seed.cu,
+// templated on the table type.  The SMEM search runs a warp per read
+// (smem1_warp: every lane runs the same loop, lane j holds live slot j);
+// the SA walks and rank4 a thread per row.
 //
 // They compute what the JAX package's lockstep seeding programs compute
 // (bwamem_tpu/ops/smem_jax.py: _smem1_kernel, _smem_all_kernel,
@@ -14,8 +16,8 @@
 //   the flag (:277-294);
 // - the backward step keeps a slot unless its extension stops, pushes a
 //   kept slot unless its size equals the last kept slot's, and emits only
-//   the first stopping slot before any kept one (:248-286), here as the
-//   scalar loop of bwt_smem1 that the vector form was proved equal to.
+//   the first stopping slot before any kept one (:248-286), which can only
+//   be the first live slot.
 // A read whose flag is set is searched again by the host's exact scalar
 // smem1, as in the JAX package.
 //
@@ -23,9 +25,8 @@
 // 64-symbol block a row of four int32 checkpoints and four 32-bit words of
 // 2-bit symbols (pk) and of 0b01 validity lanes (va).  A rank4 query reads
 // one 48-byte block (16 B of each); everything else is integer work in
-// registers and the thread's slot arrays (local memory).  Positions are
-// int64.  What bounds a thread is the chain of dependent gathers, one
-// rank4 pair an extension step: see fm_seed.cu.
+// registers.  Positions are int64.  What bounds a read is its chain of
+// dependent gathers, one rank4 pair an extension step: see fm_seed.cu.
 //
 // Two table types: Occ, the whole index on the thread's own card, and
 // ShardedOcc, the index split by block range over up to kMaxShards cards
@@ -38,11 +39,21 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#ifdef __CUDACC__
+// The lanes below this one (PTX %lanemask_lt).
+__device__ __forceinline__ unsigned lanemask_lt() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+#endif
+
 namespace fmseed {
 
 constexpr int kPCap = 24;     // live intervals of one call (P_CAP)
 constexpr int kMCap = 64;     // SMEMs one call emits (M_CAP)
 constexpr int kAllCap = 128;  // first-round SMEMs a read (ALL_CAP)
+constexpr unsigned kFull = 0xffffffffu;  // every lane of the warp
 
 struct Occ {
   const int32_t* occ;  // (nb + 1) x 4 checkpoints
@@ -141,15 +152,12 @@ __device__ __forceinline__ void rank4(const Tab& ix, int64_t i,
   }
 }
 
-// bwt_extend, is_back = 1: the four backward extensions of (x0, x1, s).
+// The four backward extensions of (x0, x1, s) from the counts tk at x0
+// and tl at x0 + s.
 template <class Tab>
-__device__ __forceinline__ void extend_back4(const Tab& ix, int64_t x0,
-                                             int64_t x1, int64_t s,
-                                             int64_t nx0[4], int64_t nx1[4],
-                                             int64_t ns[4]) {
-  int64_t tk[4], tl[4];
-  rank4(ix, x0, tk);
-  rank4(ix, x0 + s, tl);
+__device__ __forceinline__ void extend_from_ranks(
+    const Tab& ix, int64_t x0, int64_t x1, int64_t s, const int64_t tk[4],
+    const int64_t tl[4], int64_t nx0[4], int64_t nx1[4], int64_t ns[4]) {
   for (int c = 0; c < 4; ++c) {
     ns[c] = tl[c] - tk[c];
     nx0[c] = ix.C[c] + tk[c];
@@ -160,18 +168,84 @@ __device__ __forceinline__ void extend_back4(const Tab& ix, int64_t x0,
   nx1[0] = nx1[1] + ns[1];
 }
 
+// bwt_extend, is_back = 1: the four backward extensions of (x0, x1, s).
+template <class Tab>
+__device__ __forceinline__ void extend_back4(const Tab& ix, int64_t x0,
+                                             int64_t x1, int64_t s,
+                                             int64_t nx0[4], int64_t nx1[4],
+                                             int64_t ns[4]) {
+  int64_t tk[4], tl[4];
+  rank4(ix, x0, tk);
+  rank4(ix, x0 + s, tl);
+  extend_from_ranks(ix, x0, x1, s, tk, tl, nx0, nx1, ns);
+}
+
+// v[c] for a c known only at run time, by selects: an array indexed by a
+// register would live in local memory.
+__device__ __forceinline__ int64_t pick(const int64_t v[4], int c) {
+  return c == 0 ? v[0] : c == 1 ? v[1] : c == 2 ? v[2] : v[3];
+}
+
+// The backward extension of (x0, x1, s) by base c.
+template <class Tab>
+__device__ __forceinline__ void extend_back1(const Tab& ix, int64_t x0,
+                                             int64_t x1, int64_t s, int c,
+                                             int64_t* ex0, int64_t* ex1,
+                                             int64_t* es) {
+  int64_t nx0[4], nx1[4], ns[4];
+  extend_back4(ix, x0, x1, s, nx0, nx1, ns);
+  *ex0 = pick(nx0, c);
+  *ex1 = pick(nx1, c);
+  *es = pick(ns, c);
+}
+
+// The counts of bases 0..3 among the first nsym (1..16) symbols of the
+// packed word w with validity lanes v, a byte a base.
+__device__ __forceinline__ unsigned word_counts(uint32_t w, uint32_t v,
+                                                int nsym) {
+  const uint32_t pmask = nsym >= 16 ? 0xFFFFFFFFu : ((1u << (2 * nsym)) - 1u);
+  unsigned packed = 0;
+  for (int c = 0; c < 4; ++c) {
+    const uint32_t t = ~(w ^ (0x55555555u * (uint32_t)c));
+    packed |= (unsigned)__popc(t & (t >> 1) & 0x55555555u & v & pmask)
+              << (8 * c);
+  }
+  return packed;
+}
+
 // The forward extension of (x0, x1, s) by base c (P.c): the backward
 // extension of the reverse complement by 3 - c, x0 and x1 swapped back.
+// Called by every lane of the warp with the same arguments.  Its two rank4
+// queries go to each group of eight lanes: lane l counts word l & 3 of the
+// block of x1 (l < 4) or of x1 + s (l >= 4), the four bases a byte each;
+// two shuffles sum a query's words, and one a base trades the two
+// queries' counts.  The card preferred this to a query a lane of a pair,
+// and that to every lane issuing both (chip_tune.py --seed, PERF.md).
 template <class Tab>
-__device__ __forceinline__ void extend_fwd1(const Tab& ix, int64_t x0,
-                                            int64_t x1, int64_t s, int c,
-                                            int64_t* ex0, int64_t* ex1,
-                                            int64_t* es) {
-  int64_t nx0[4], nx1[4], ns[4];
-  extend_back4(ix, x1, x0, s, nx0, nx1, ns);
-  *ex0 = nx1[3 - c];
-  *ex1 = nx0[3 - c];
-  *es = ns[3 - c];
+__device__ __forceinline__ void extend_fwd1_warp(const Tab& ix, int64_t x0,
+                                                 int64_t x1, int64_t s,
+                                                 int c, int64_t* ex0,
+                                                 int64_t* ex1, int64_t* es) {
+  const unsigned l = threadIdx.x & 7u;
+  const bool hi = l & 4u;  // this lane counts at x1 + s
+  const int k = (int)(l & 3u);
+  const int64_t i = hi ? x1 + s : x1;
+  const Block b = block_of(ix, i >> 6);
+  const int nsym = (int)(i & 63) - 16 * k;
+  unsigned packed = nsym > 0 ? word_counts(b.pk[k], b.va[k], nsym) : 0u;
+  packed += __shfl_xor_sync(kFull, packed, 1);
+  packed += __shfl_xor_sync(kFull, packed, 2);  // at most 64 a byte
+  int64_t tk[4], tl[4], nx0[4], nx1[4], ns[4];
+  for (int cc = 0; cc < 4; ++cc) {
+    const int64_t mine = b.occ[cc] + (int64_t)((packed >> (8 * cc)) & 0xffu);
+    const int64_t other = __shfl_xor_sync(kFull, mine, 4);
+    tk[cc] = hi ? other : mine;
+    tl[cc] = hi ? mine : other;
+  }
+  extend_from_ranks(ix, x1, x0, s, tk, tl, nx0, nx1, ns);
+  *ex0 = pick(nx1, 3 - c);
+  *ex1 = pick(nx0, 3 - c);
+  *es = pick(ns, 3 - c);
 }
 
 // One call's emissions: field f of emission k at m[f * kMCap + k], fields
@@ -183,31 +257,51 @@ struct Smem1 {
 };
 
 // bwt_smem1 of read q (qlen bases, codes 0..3, N = 4) at x with the JAX
-// program's caps: the SMEMs through x in emission order (qb descending)
-// into m, the position the scan resumes at, and the overflow flag.  A read
-// whose x is not a base (x >= qlen or an N) gives x + 1 and nothing.
+// program's caps, run by the 32 lanes of a warp together, each with the
+// same arguments; every lane returns the same result: the SMEMs through x
+// in emission order (qb descending) into m, the position the scan resumes
+// at, and the overflow flag.  A read whose x is not a base (x >= qlen or
+// an N) gives x + 1 and nothing.  Every branch that contains a warp
+// collective is decided by values all lanes share.
+//
+// The forward pass is one chain of dependent steps that every lane runs,
+// each step's two gathers split over eight lanes (extend_fwd1_warp).  Push
+// k goes to lane kPCap-1-k, so the live lanes in ascending order hold the
+// slots longest first, with no reversal.  The backward pass then extends every
+// live slot at once (two rank4 gathers in flight a lane) and replaces the
+// scalar slot loop with warp votes over the lanes; the slots stay in
+// their lanes, a bit of `live` a slot, so nothing moves:
+// - a slot goes on if its extension by q[i] has at least min_intv rows;
+// - the first live slot, if it stops, may emit (the first stopping slot
+//   before any kept one can only be the first live slot);
+// - a slot that goes on is kept if it is the first to go on or its size
+//   differs from that of the previous slot that goes on.
 template <class Tab>
-__device__ inline Smem1 smem1_dev(const Tab& ix, const uint8_t* q,
-                                  int64_t qlen, int64_t x, int64_t min_intv,
-                                  int64_t* m) {
+__device__ inline Smem1 smem1_warp(const Tab& ix, const uint8_t* q,
+                                   int64_t qlen, int64_t x, int64_t min_intv,
+                                   int64_t* m) {
   Smem1 out{x + 1, false, 0};
   if (x < 0 || x >= qlen || q[x] > 3) return out;
+  const int lane = (int)(threadIdx.x & 31u);
   const int c0 = q[x];
   int64_t cx0 = ix.C[c0], cs = ix.C[c0 + 1] - ix.C[c0], cx1 = ix.C[3 - c0];
   int64_t cqe = x + 1;
-  // the forward list, later the live (prev) list, field-major
-  int64_t px0[kPCap], px1[kPCap], ps[kPCap], pqe[kPCap];
+  int64_t sx0 = 0, sx1 = 0, ss = 0, sqe = 0;  // this lane's slot
   int fn = 0;
   for (int64_t i = x + 1;; ++i) {
     const bool stop_here = i >= qlen || q[i] > 3;
     int64_t ex0 = 0, ex1 = 0, es = cs;
-    if (!stop_here) extend_fwd1(ix, cx0, cx1, cs, q[i], &ex0, &ex1, &es);
+    if (!stop_here)
+      extend_fwd1_warp(ix, cx0, cx1, cs, q[i], &ex0, &ex1, &es);
     if (stop_here || es != cs) {  // push the current interval
       if (fn < kPCap) {
-        px0[fn] = cx0;
-        px1[fn] = cx1;
-        ps[fn] = cs;
-        pqe[fn] = cqe;
+        if (lane == kPCap - 1 - fn) {
+          sx0 = cx0;
+          sx1 = cx1;
+          ss = cs;
+          sqe = cqe;
+        }
+        out.ret = cqe;  // the qe of the last slot kept
         ++fn;
       } else {
         out.ovf = true;
@@ -219,54 +313,42 @@ __device__ inline Smem1 smem1_dev(const Tab& ix, const uint8_t* q,
     cs = es;
     cqe = i + 1;
   }
-  out.ret = pqe[fn - 1];
-  for (int a = 0, b = fn - 1; a < b; ++a, --b) {  // longest first
-    int64_t t;
-    t = px0[a], px0[a] = px0[b], px0[b] = t;
-    t = px1[a], px1[a] = px1[b], px1[b] = t;
-    t = ps[a], ps[a] = ps[b], ps[b] = t;
-    t = pqe[a], pqe[a] = pqe[b], pqe[b] = t;
-  }
-  int pn = fn, mn = 0;
-  for (int64_t i = x - 1; i >= -1 && pn > 0; --i) {
+  const unsigned below = lanemask_lt();
+  unsigned live = ((1u << fn) - 1u) << (kPCap - fn);  // 1 <= fn <= kPCap
+  int mn = 0;
+  int64_t last_qb = 0;  // the qb of emission mn - 1
+  for (int64_t i = x - 1; i >= -1 && live; --i) {
     const int c = i >= 0 ? q[i] : 4;
-    int ncnt = 0;
-    bool tried = false;
-    int64_t last_s = 0;
-    for (int j = 0; j < pn; ++j) {
-      int64_t nx0[4], nx1[4], ns[4];
-      bool stop = c > 3;
-      if (!stop) {
-        extend_back4(ix, px0[j], px1[j], ps[j], nx0, nx1, ns);
-        stop = ns[c] < min_intv;
-      }
-      if (stop) {
-        // the first stopping slot before any kept one may emit
-        if (ncnt == 0 && !tried) {
-          tried = true;
-          if ((mn == 0 || i + 1 < m[mn - 1]) && mn < kMCap) {
-            m[0 * kMCap + mn] = i + 1;
-            m[1 * kMCap + mn] = pqe[j];
-            m[2 * kMCap + mn] = px0[j];
-            m[3 * kMCap + mn] = px1[j];
-            m[4 * kMCap + mn] = ps[j];
-            ++mn;
-          }
-        }
-      } else {
-        // compacted in place: ncnt <= j, slot j is read before
-        if (ncnt == 0 || ns[c] != last_s) {
-          const int64_t qe = pqe[j];
-          px0[ncnt] = nx0[c];
-          px1[ncnt] = nx1[c];
-          ps[ncnt] = ns[c];
-          pqe[ncnt] = qe;
-          ++ncnt;
-        }
-        last_s = ns[c];
-      }
+    int64_t nx0 = 0, nx1 = 0, ns = 0;
+    bool go = false;
+    if (c <= 3 && ((live >> lane) & 1u)) {
+      extend_back1(ix, sx0, sx1, ss, c, &nx0, &nx1, &ns);
+      go = ns >= min_intv;
     }
-    pn = ncnt;
+    const unsigned cont = __ballot_sync(kFull, go);
+    const int first = __ffs(live) - 1;
+    if (!((cont >> first) & 1u) && (mn == 0 || i + 1 < last_qb) &&
+        mn < kMCap) {  // the first live slot stops and emits
+      if (lane == first) {
+        m[0 * kMCap + mn] = i + 1;
+        m[1 * kMCap + mn] = sqe;
+        m[2 * kMCap + mn] = sx0;
+        m[3 * kMCap + mn] = sx1;
+        m[4 * kMCap + mn] = ss;
+      }
+      last_qb = i + 1;
+      ++mn;
+    }
+    const unsigned prev = cont & below;
+    const int64_t prev_s =
+        __shfl_sync(kFull, ns, prev ? 31 - __clz(prev) : lane);
+    const bool keep = go && (prev == 0 || ns != prev_s);
+    live = __ballot_sync(kFull, keep);
+    if (keep) {
+      sx0 = nx0;
+      sx1 = nx1;
+      ss = ns;
+    }
   }
   out.n = mn;
   out.ovf = out.ovf || mn >= kMCap;

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from bwamem_tpu_torch.device import resolve
 from bwamem_tpu_torch.ops import extend_cuda
 from bwamem_tpu_torch.ops.types import ExtendOut, params_vector
 
@@ -56,17 +57,19 @@ def _run(query, qlen, target, tlen, aw, h0, prm, blk_b, device,
 
 
 def extend_batch_core(query, qlen, target, tlen, aw, h0, params, *,
-                      blk_b: int = 128, device="cpu") -> ExtendOut:
+                      blk_b: int = 128, device="cuda") -> ExtendOut:
     """One banded extension pass (no doubling) of B row-major tasks:
     query (B, qmax) and target (B, tmax) base codes 0-4, the rest (B,).
-    B must be a multiple of blk_b (pad with qlen == 0 tasks)."""
+    B must be a multiple of blk_b (pad with qlen == 0 tasks).  Runs on
+    the card unless `device` says otherwise (device.resolve: a card asked
+    for and absent raises)."""
     return _run(query, qlen, target, tlen, aw, h0, params_vector(params),
-                blk_b, torch.device(device))
+                blk_b, resolve(device))
 
 
 def extend_batch(query, qlen, target, tlen, w, h0, max_ins, max_del,
                  params, prev_score=None, max_band_try: int = 2, *,
-                 blk_b: int = 128, device="cpu") -> ExtendOut:
+                 blk_b: int = 128, device="cuda") -> ExtendOut:
     """Full extension with band doubling: pass k at aw = min(w << k,
     max_ins, max_del); a lane keeps the first pass that converged
     (score == the previous score, or max_off < (aw>>1) + (aw>>2))."""

@@ -8,12 +8,14 @@ raise: there is no fallback.  `launches` counts kernel launches per
 kernel (the CPU path does not count).
 
 The seeder runs smem_torch's host flow over the kernels: per chunk one
-H2D copy of the (B, L) uint8 reads, one bwt_smem_all launch and one D2H
-copy of its packed rows, one bwt_smem1 launch a split re-seed round, one
-bwt_sa launch over all seed rows.  Reads and re-seed jobs whose slots
-overflowed take the exact scalar search on the host (index/fmindex.smem1),
-the algorithm's own overflow path as in the JAX package; `seed_fn.stats`
-counts them."""
+H2D copy of the (B, L) uint8 reads, one bwt_smem_all launch, one
+bwt_smem1 launch a split re-seed round, one bwt_sa launch over all seed
+rows.  Each copies back only what the host flow reads (`Programs`): the
+head columns, then the slots up to the largest count, and for bwt_smem1
+only the round's jobs, into pinned memory.  Reads and re-seed jobs whose
+slots overflowed take the exact scalar search on the host
+(index/fmindex.smem1), the algorithm's own overflow path as in the JAX
+package; `seed_fn.stats` counts them."""
 
 from __future__ import annotations
 
@@ -128,21 +130,59 @@ def sa(d: DeviceOcc, ssa, sa_intv: int, rows, max_it=None):
 
 
 class Programs(smem_torch.Programs):
-    """smem_torch's host flow over the wrappers above."""
+    """smem_torch's host flow over the wrappers above, each returning the
+    narrowed form smem_torch.Programs describes: the head columns ([cnt,
+    ovf] or [ret, ovf, n]) are copied back first, then one gather on the
+    device makes the head and the first C slots of each field, C the
+    largest count, one contiguous tensor, copied back in one piece;
+    bwt_smem1's rows are the round's jobs only.  On a CUDA device every
+    copy goes through a pinned buffer of this thread's own, one a
+    program, grown as needed (one seeder serves every --inflight thread);
+    what is returned is a copy, not a view of it."""
+
+    def __init__(self, d, ssa, sa_intv: int):
+        super().__init__(d, ssa, sa_intv)
+        self._pinned = threading.local()
 
     def _put(self, a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.d.device)
 
+    def _host(self, name, t):
+        """The tensor t as a numpy array of its own."""
+        if t.device.type != "cuda":
+            return t.numpy().copy()
+        n = t.numel()
+        buf = getattr(self._pinned, name, None)
+        if buf is None or buf.numel() < n:
+            size = max(n, 0 if buf is None else 2 * buf.numel())
+            buf = torch.empty(size, dtype=t.dtype, pin_memory=True)
+            setattr(self._pinned, name, buf)
+        view = buf[:n].view(t.shape)
+        view.copy_(t)
+        return view.numpy().copy()
+
+    def _narrow(self, name, out, head, n_col, cap):
+        """out's head columns and the first C of each field's `cap` slots,
+        C = the largest count (head column n_col) of any row."""
+        C = int(self._host(name + "_head", out[:, :head])[:, n_col].max(
+            initial=0))
+        body = out[:, head:].view(len(out), 5, cap)[:, :, :C]
+        return self._host(name, torch.cat(
+            [out[:, :head], body.reshape(len(out), 5 * C)], 1))
+
     def all_fn(self, q, qlen, msl):
-        return smem_all(self.d, q, qlen, msl).cpu().numpy()
+        return self._narrow("all", smem_all(self.d, q, qlen, msl), 2, 0,
+                            smem_torch.ALL_CAP)
 
     def smem1_fn(self, q, qlen, x, min_intv, mask):
-        return smem1(self.d, q, qlen, self._put(x), self._put(min_intv),
-                     self._put(mask.astype(np.uint8))).cpu().numpy()
+        out = smem1(self.d, q, qlen, self._put(x), self._put(min_intv),
+                    self._put(mask.astype(np.uint8)))
+        jobs = out.index_select(0, self._put(np.nonzero(mask)[0]))
+        return self._narrow("smem1", jobs, 3, 2, smem_torch.M_CAP)
 
     def sa_fn(self, rows):
-        return sa(self.d, self.ssa, self.sa_intv, self._put(rows)).cpu(
-            ).numpy()
+        return self._host("sa", sa(self.d, self.ssa, self.sa_intv,
+                                   self._put(rows)))
 
 
 def make_device_seeder(po, fm, opt, device):

@@ -135,6 +135,13 @@ def _count(stats, key, mask) -> None:
         stats[key] = stats.get(key, 0) + int(mask.sum())
 
 
+def _count_rows(stats, key, mask) -> None:
+    """stats[key], an int64 tensor of mask's shape, += mask, row by row
+    (a read, or an SA row)."""
+    if stats is not None:
+        stats[key] = stats.get(key, 0) + mask.long()
+
+
 def _popcount32(x):
     """Bits set in each int64 element < 2^32."""
     x = x - ((x >> 1) & _M55)
@@ -195,7 +202,10 @@ def smem1(d: DeviceOcc, q, qlen, x, min_intv, stats=None):
     min_intv (B,); any integer dtype, all on d.device.  Returns the eight
     (B,) / (B, M_CAP) int64 tensors (ret, overflow, m_qb, m_qe, m_x0,
     m_x1, m_s, m_n); emission slots past m_n are 0.  `stats["rank4"]`
-    (when given) counts the rank4 queries the live lanes need."""
+    (when given) counts the rank4 queries the live lanes need, and
+    `stats["rounds"]` ((B,) int64) each read's rounds of dependent
+    gathers: one a forward step, one a backward step with a live slot
+    (a backward step extends all its slots at once)."""
     q = q.long()
     qlen, x, min_intv = qlen.long(), x.long(), min_intv.long()
     B, L = q.shape
@@ -235,6 +245,7 @@ def smem1(d: DeviceOcc, q, qlen, x, min_intv, stats=None):
         fpush(at_end | amb)
         active = active & ~(at_end | amb)
         _count(stats, "rank4", 2 * active)
+        _count_rows(stats, "rounds", active)
         nx0, nx1, ns = extend_backward4(d, cx1, cx0, cs)
         cc = (3 - ch).clamp(0, 3)
         ex1, ex0, es = _take(nx0, cc), _take(nx1, cc), _take(ns, cc)
@@ -267,6 +278,7 @@ def smem1(d: DeviceOcc, q, qlen, x, min_intv, stats=None):
         p_x0, p_x1, p_s, p_qe = p
         has = live[:, None] & (iotaP < p_n[:, None])
         _count(stats, "rank4", 2 * (has & cvalid[:, None]))
+        _count_rows(stats, "rounds", live & cvalid & (p_n > 0))
         nx0, nx1, ns = extend_backward4(d, p_x0, p_x1, p_s)
         chc = ch.clamp(0, 3)[:, None, None].expand(B, P_CAP, 1)
         sel_x0 = nx0.gather(2, chc)[..., 0]
@@ -324,7 +336,8 @@ def smem_all(d: DeviceOcc, q, qlen, min_seed_len, stats=None):
     emissions of length >= min_seed_len append per read in the host
     path's order (rounds ascending, each call's emissions reversed).
     Returns (B, ALL_COLS) int64 [cnt, ovf, qb.., qe.., x0.., x1.., s..]
-    with ALL_CAP slots; slots past cnt are 0."""
+    with ALL_CAP slots; slots past cnt are 0.  `stats` as smem1's, summed
+    over the rounds."""
     q = q.long()
     qlen = qlen.long()
     B, L = q.shape
@@ -377,7 +390,7 @@ def sa_batch(d: DeviceOcc, ssa, sa_intv: int, rows, stats=None,
     such a row gives 0).  ssa: the sampled SA as int64 on d.device (or a
     ShardedOcc's BlockShards); rows (N,) int64.  Returns (N,) int64.
     `stats["rank4"]` / `stats["lf"]` count the rank4 queries and the LF
-    steps taken."""
+    steps taken, `stats["rounds"]` ((N,) int64) each row's LF steps."""
     return sa_walk(d, ssa, sa_intv, rows, stats, max_it)[0]
 
 
@@ -401,6 +414,7 @@ def sa_walk(d: DeviceOcc, ssa, sa_intv: int, rows, stats=None,
             break
         _count(stats, "rank4", ~done)
         _count(stats, "lf", ~done)
+        _count_rows(stats, "rounds", ~done)
         blk = r >> 6
         off = r & 63
         lane = 2 * (off & 15)
@@ -443,7 +457,13 @@ class Programs:
     numpy out: `all_fn(q, qlen, msl)` -> (B, ALL_COLS), `smem1_fn(q, qlen,
     x, min_intv, mask)` -> (B, SMEM1_COLS), `sa_fn(rows)` -> (N,), each
     int64.  q is the chunk's (B, L) uint8 codes and qlen (B,) int64,
-    already on the device.  This class runs the plain versions."""
+    already on the device.  This class runs the plain versions.
+
+    The host flow also takes the narrowed forms a program may return
+    instead (ops/smem_cuda.Programs): all_fn's slots cut to W <= ALL_CAP
+    a field, (B, 2 + 5W); smem1_fn's rows cut to the masked-in reads, in
+    read order, and its slots to W <= M_CAP a field, (R, 3 + 5W).  W
+    covers every row's count."""
 
     def __init__(self, d: DeviceOcc, ssa, sa_intv: int):
         self.d = d
@@ -496,8 +516,9 @@ def collect_smems_device(progs, fm, reads, min_seed_len: int,
 
     packed = progs.all_fn(q_d, qlen_d, int(min_seed_len))
     cnt, ovf = packed[:, 0], packed[:, 1].astype(bool)
-    slots = packed[:, 2:].reshape(B, 5, ALL_CAP)
-    take = (np.arange(ALL_CAP) < cnt[:, None]) & ~ovf[:, None]
+    W = (packed.shape[1] - 2) // 5           # ALL_CAP, or narrowed
+    slots = packed[:, 2:].reshape(B, 5, W)
+    take = (np.arange(W) < cnt[:, None]) & ~ovf[:, None]
     rd, k = np.nonzero(take)
     parts = [np.stack([rd, *(slots[rd, f, k] for f in range(5))], 1)]
     for b in np.nonzero(ovf)[0]:      # the exact host search
@@ -534,17 +555,21 @@ def collect_smems_device(progs, fm, reads, min_seed_len: int,
         mis[rb] = jk[:, 5] + 1
         mask[rb] = True
         res = progs.smem1_fn(q_d, qlen_d, xs, mis, mask)
+        if len(res) == B:       # every read's row: keep the round's jobs
+            res = res[mask]
+        rd_of = np.nonzero(mask)[0]     # res row k is read rd_of[k]
         r_ovf = res[:, 1].astype(bool)
         m_n = res[:, 2]
-        f = res[:, 3:].reshape(B, 5, M_CAP)
+        W = (res.shape[1] - 3) // 5     # M_CAP, or narrowed
+        f = res[:, 3:].reshape(len(res), 5, W)
         # each call's emissions reversed: slot m_n-1 first
-        slot = m_n[:, None] - 1 - np.arange(M_CAP)
-        ok = mask[:, None] & ~r_ovf[:, None] & (slot >= 0)
-        rd, j = np.nonzero(ok)
-        sl = slot[rd, j]
-        got = np.stack([rd, *(f[rd, c, sl] for c in range(5))], 1)
+        slot = m_n[:, None] - 1 - np.arange(W)
+        ok = ~r_ovf[:, None] & (slot >= 0)
+        k, j = np.nonzero(ok)
+        sl = slot[k, j]
+        got = np.stack([rd_of[k], *(f[k, c, sl] for c in range(5))], 1)
         out.append(got[(got[:, 2] - got[:, 1]) >= min_seed_len])
-        for b in np.nonzero(mask & r_ovf)[0]:
+        for b in rd_of[r_ovf]:
             n_ovf_jobs += 1
             out.append(_host_smem1(fm, q, qlen, b, xs[b], mis[b],
                                    min_seed_len)[1])

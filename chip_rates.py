@@ -20,7 +20,8 @@ native path (--device-seed among them), and its 2,048 device-protocol
 pairs once with host rescue and CIGAR and once with --device-rescue
 --device-cigar, under torch.profiler and prints the wall, the device time
 (all kernels and copies), the extension, seeding, rescue and CIGAR
-kernels' share of it and their launches.
+kernels' share of it and their launches, and the copies' time and count
+by kind (`Memcpy DtoH (Device -> Pinned)`, `... -> Pageable)`, ...).
 """
 
 from __future__ import annotations
@@ -70,11 +71,14 @@ def profile(cs, common, fa, se, dev_pe) -> None:
         kern = [(k, us, n) for k, us, n in rows
                 if re.search(r"extend_|smem|sa_kernel|local_align6|"
                              r"global_cigar", k)]
+        copies = [(k, round(us / 1e3, 3), n) for k, us, n in rows
+                  if k.startswith("Memcpy")]
         top = sorted(rows, key=lambda r: -r[1])[:6]
         print(f"profile {name}: wall {wall:.3f} s (mem with the profiler "
               f"on), device time {total / 1e3:.3f} ms = "
               f"{100 * total / 1e6 / wall:.2f}% busy; kernels "
               f"{[(k[:40], round(us / 1e3, 3), n) for k, us, n in kern]}; "
+              f"copies {copies}; "
               f"top {[(k[:40], round(us / 1e3, 3), n) for k, us, n in top]}",
               flush=True)
 

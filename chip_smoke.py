@@ -30,7 +30,10 @@ Phases, each of which fails the run (exit code 1, no result line):
              segment; all-N reads, N runs, reads shorter than -k); at least
              one read must overflow; the kernel seeder's rows against the
              C++ engine's (collect_seeds_native), values and order; each
-             kernel timed with its bytes bound;
+             kernel timed with its bytes bound and its dependence bound
+             (the longest chain of dependent gather rounds of any read or
+             row, as the plain version counts them, times the card's time
+             for one step, from one-row bwt_sa walks);
   4b. seed-sh the table-sharded seeding kernels (bwt_rank4_sh,
              bwt_smem_all_sh, bwt_smem1_sh, bwt_sa_sh; ops/smem_sharded.py)
              at two scales.  Smoke scale, on phase 4's gate: over
@@ -38,8 +41,9 @@ Phases, each of which fails the run (exit code 1, no result line):
              several with peer access; without it the factory must
              refuse), each kernel == its plain version over the same
              shards and == the unsharded kernel, every row and field,
-             timed with its bytes bound; the path (its launch counts set
-             to 0 just before it and read just after): rank4 through
+             timed with its bytes and dependence bounds; the path (its
+             launch counts set to 0 just before it and read just after):
+             rank4 through
              make_sharded_rank4 at a block origin of 2^26 == host rank4,
              and the first 4,096 SE reads of phase 6 through
              NativePipeline with the table-sharded seeder at n_dev 1 and
@@ -128,7 +132,8 @@ after.  Each extension kernel's bound is the larger of its band cells
 over PEAK_INT_OPS (with 16-bit cells: two cells an operation) and its
 bytes (inputs read once, outputs written once) over PEAK_BYTES; a seeding
 kernel's is bytes: 48 B a rank4 query and 8 B an LF step (counted by the
-plain version) with its inputs and outputs; the mate-rescue and CIGAR
+plain version) with its inputs and outputs (its dependence bound beside
+it, as dep_bound_ms); the mate-rescue and CIGAR
 kernels' is that of their cells (both fills' qlen x tlen, the second from
 the plain version's qe, te; the band cells of the fill) at
 INT_OPS_PER_CELL, or their bytes.  The `kernels` line gives the
@@ -199,14 +204,20 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of fn() over `reps` runs, by CUDA events."""
+def cuda_ms(fn, reps: int, sleep_cycles: int = 0) -> float:
+    """Mean milliseconds of fn() over `reps` runs, by CUDA events.  With
+    sleep_cycles, a sleep kernel of that many cycles queued first keeps
+    the card busy while the host queues the runs, so they run back to back
+    and the host's time between launches does not count (for launches
+    shorter than it)."""
     import torch
 
     fn()  # warm-up
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    if sleep_cycles:
+        torch.cuda._sleep(sleep_cycles)
     t0.record()
     for _ in range(reps):
         fn()
@@ -215,11 +226,17 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+# the SMEM kernels, a warp per read (bwt_smem_all, bwt_smem1 and the _sh
+# twins), by their names in ptxas_summary
+SMEM_KERNELS = ("smem_all_kernel", "smem1_kernel")
+
+
 def ptxas_summary(log_text):
     """`nvcc -Xptxas -v` output as one entry per kernel: its name (with
     the <group, strip, cell type> template arguments: i = int32_t, s =
     int16_t; <group, strip> for the rescue and CIGAR kernels), registers,
-    and spill bytes where there are any."""
+    and stack and spill bytes where there are any (for the SMEM kernels
+    always)."""
     out, name = [], "?"
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -235,13 +252,16 @@ def ptxas_summary(log_text):
             if seed:   # the _sh instantiations read a ShardedOcc
                 name = seed.group(1) + ("<sh>" if "ShardedOcc" in name
                                         or "rank4" in name else "")
+        warp = name.startswith(SMEM_KERNELS)   # stack and spills, even 0
         m = re.search(r"(\d+) bytes stack frame", line)
-        if m and int(m.group(1)):
+        if m and (int(m.group(1)) or warp):
             out.append(f"{name} {m.group(1)} B stack")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and (int(m.group(1)) or int(m.group(2))):
             out.append(f"{name} SPILLS {m.group(1)}+{m.group(2)} B")
+        elif m and warp:
+            out.append(f"{name} no spills")
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out.append(f"{name} {m.group(1)} regs")
@@ -486,11 +506,44 @@ def seed_bound(stats, n_bytes):
     return 1e3 * total / PEAK_BYTES, total
 
 
+def step_ms(walk_one, rounds, what):
+    """The card's time for one dependent gather step: walk_one(k) launches
+    the SA walk of row k alone (bwt_sa or bwt_sa_sh, one thread); rounds
+    (N,) are the rows' LF steps as the plain version counts them.  The
+    longest walk's time less that of a walk of no step, over its steps."""
+    k_long = int(rounds.argmax())
+    k_zero = int((rounds == 0).nonzero()[0, 0])
+    n = int(rounds[k_long])
+    t_long = cuda_ms(lambda: walk_one(k_long), 20, 20_000_000)
+    t_zero = cuda_ms(lambda: walk_one(k_zero), 20, 20_000_000)
+    step = (t_long - t_zero) / n
+    log(f"{what}: one SA row's walk of {n} LF steps {t_long * 1e3:.3f} us, "
+        f"of none {t_zero * 1e3:.3f} us (CUDA events, launches back to "
+        f"back) -> {step * 1e6:.1f} ns a dependent step")
+    return step
+
+
+def dep_bound(entry, name, rounds, step):
+    """The dependence bound of a seeding kernel into its `kernels` entry:
+    the longest chain of dependent gather rounds of any read or row
+    (rounds (B,), the plain version's count on the timed inputs) times
+    the card's time for one step; logged with its share of the kernel's
+    time."""
+    chain = int(rounds.max())
+    entry["dep_bound_ms"] = chain * step
+    entry["dep_chain"] = chain
+    log(f"{name}: longest chain {chain} dependent gather rounds x "
+        f"{step * 1e6:.1f} ns = dependence bound {chain * step:.4f} ms = "
+        f"{100 * chain * step / entry['ms']:.1f}% of the kernel's "
+        f"{entry['ms']:.4f} ms")
+
+
 def phase_seed_kernels(dev):
     """The seeding kernels (bwt_smem_all, bwt_smem1, bwt_sa) against their
     plain versions on the card, exactly, on the gate batch over the smoke
     genome plus the overflow contig; the kernel seeder's rows against the
-    C++ engine's; each kernel timed with its bound."""
+    C++ engine's; each kernel timed with its bytes bound and its
+    dependence bound."""
     import torch
 
     import _torch_gate as gate
@@ -548,6 +601,7 @@ def phase_seed_kernels(dev):
           lambda: smem_cuda.smem_all(d, q, ql, opt.min_seed_len),
           lambda: smem_torch.smem_all(d, q, ql, opt.min_seed_len), st,
           mat.nbytes + qlen.nbytes + 8 * got.numel())
+    rounds = {"bwt_smem_all": st["rounds"]}
 
     # one call a read at a random x, min_intv and mask
     x = rng.integers(0, np.maximum(qlen, 1))
@@ -568,6 +622,7 @@ def phase_seed_kernels(dev):
     timed("bwt_smem1", lambda: smem_cuda.smem1(d, q, ql, x_d, mi_d, mask_d),
           lambda: smem_torch.smem1(d, q, ql, x_eff, mi_d), st,
           mat.nbytes + 4 * qlen.nbytes + mask.nbytes + 8 * got.numel())
+    rounds["bwt_smem1"] = st["rounds"]
 
     # the seeder's rows against the C++ engine's, and the SA walks of
     # the gate's seeds
@@ -601,6 +656,12 @@ def phase_seed_kernels(dev):
     timed("bwt_sa", lambda: smem_cuda.sa(d, progs.ssa, fm.sa_intv, r_d),
           lambda: smem_torch.sa_batch(d, progs.ssa, fm.sa_intv, r_d), st,
           16 * len(sa_rows))
+    rounds["bwt_sa"] = st["rounds"]
+    step = step_ms(lambda k: smem_cuda.sa(d, progs.ssa, fm.sa_intv,
+                                          r_d[k:k + 1]),
+                   st["rounds"], "bwt_sa on the gate's seed rows")
+    for name, r in rounds.items():
+        dep_bound(timing[name], name, r, step)
     return timing, (fm, po, reads, sa_rows)
 
 
@@ -849,10 +910,11 @@ def phase_seed_sharded(dev, seed_gate):
         tabs = smem_sharded.ShardedSeedTables(po, fm.ssa, fm.sa_intv, devs)
         smem_sharded.enable_peer_access(devs)
         v = tabs.view(devs[0])
+        sts = {}
         for name, (kernel, plain) in calls(v, t).items():
             got = kernel()
             torch.cuda.synchronize()
-            st = {}
+            st = sts[name] = {}
             want, plain_ms = timed_once(lambda: plain(st))
             same(name, got, want, "plain")
             same(name, got, unsharded[name].to(devs[0]),
@@ -875,6 +937,12 @@ def phase_seed_sharded(dev, seed_gate):
                 timing[name] = {"max_abs_err": 0, "ms": ms,
                                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                                 "bound_by": "bytes", "library_ms": None}
+        if timing is not None:
+            step = step_ms(lambda k: smem_sharded.sa(
+                v, v.ssa, fm.sa_intv, t["sa"][k:k + 1]),
+                sts["bwt_sa_sh"]["rounds"], f"bwt_sa_sh at n_dev {len(devs)}")
+            for name in ("bwt_smem_all_sh", "bwt_smem1_sh", "bwt_sa_sh"):
+                dep_bound(timing[name], name, sts[name]["rounds"], step)
         log(f"_sh kernels over {[str(x) for x in devs]} == plain == the "
             f"unsharded kernels on the {B}-read gate (rank4 on "
             f"{len(rows4)} rows, SA walks on {len(sa_rows)} rows)")
@@ -1040,6 +1108,9 @@ def phase_seed_sharded(dev, seed_gate):
     stats = {"bwt_rank4_sh": {"rank4": len(hrows)},
              "bwt_smem_all_sh": st_all, "bwt_smem1_sh": st_1,
              "bwt_sa_sh": st_sa}
+    step_h = step_ms(lambda k: smem_cuda.sa(hd, hssa, SH_SA_INTV,
+                                            hsa[k:k + 1]),
+                     st_sa["rounds"], "bwt_sa on the 6.2 G-row table")
     in_bytes = {"bwt_rank4_sh": 8 * len(hrows),
                 "bwt_smem_all_sh": hq.nbytes + hql.nbytes,
                 "bwt_smem1_sh": hq.nbytes + hql.nbytes + hx.nbytes
@@ -1067,6 +1138,9 @@ def phase_seed_sharded(dev, seed_gate):
                 f"{ms:.3f} ms; {stats[name].get('rank4', 0)} rank4 queries, "
                 f"{stats[name].get('lf', 0)} LF steps, {total} B -> bound "
                 f"{bound_ms:.4f} ms = {100 * bound_ms / ms:.2f}%")
+            if "rounds" in stats[name]:
+                dep_bound({"ms": ms}, f"{name} at n_dev {n}, 6.2 G rows",
+                          stats[name]["rounds"], step_h)
         del tabs, v, kernels
         torch.cuda.empty_cache()
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -2108,8 +2182,12 @@ def main() -> int:
     from bwamem_tpu_torch.ops import _build
 
     kl = _build.load()
+    ptxas = ptxas_summary(kl.log)
     log(f"CUDA kernels built in {kl.build_seconds:.1f}s -> "
-        f"{os.path.relpath(kl.path, root)}; ptxas: {ptxas_summary(kl.log)}")
+        f"{os.path.relpath(kl.path, root)}; ptxas: {ptxas}")
+    log("SMEM kernels, a warp per read (registers, stack, spills): "
+        + "; ".join(e for e in ptxas.split("; ")
+                    if e.startswith(SMEM_KERNELS)))
 
     timing, timing_i16 = phase_kernel(dev)
     timing_t, timing_t_i16 = phase_kernel_t(dev)

@@ -24,10 +24,16 @@ table, "against", on the entry points it has; a second and later DIR is
 listed as "against:" and its last path component.
 
 With `--seed`, it times the seeding kernels instead (bwt_smem_all,
-bwt_smem1, bwt_sa of csrc/fm_seed.cu on chip_smoke.py's phase-4 gate), as
-committed and in each `--against` DIR, in turns (committed, against, ...,
-then the reverse order), every output checked against the committed
-build's.
+bwt_smem1, bwt_sa of csrc/fm_seed.cu on chip_smoke.py's phase-4 gate, and
+the table-sharded bwt_smem_all_sh, bwt_smem1_sh over the same gate's
+tables split over [cuda:0] * 4), as committed and in each `--against`
+DIR, in turns (committed, against, ..., then the reverse order), every
+output checked against the committed build's.  Say
+
+    git archive e071fb8 bwamem_tpu_torch/csrc | tar -x -C _archive/parent
+    python3 chip_tune.py --seed --against _archive/parent/bwamem_tpu_torch/csrc
+
+to time a parent commit's seeding kernels beside the committed ones.
 
 It prints one line per batch: the band cells the inputs need, the bound
 chip_smoke.py computes from them, and each table's times in ms.  Nothing
@@ -123,10 +129,13 @@ def reads_like_batch(rng):
 
 
 def time_seed_kernels(libs, dev):
-    """The three seeding kernels of each library on chip_smoke.py's
-    phase-4 gate (2,048 reads over the smoke genome and the overflow
-    contig; bwt_smem1 at random x / min_intv / mask; bwt_sa on the gate's
-    seed rows), three rounds of turns, 20 launches a time."""
+    """The seeding kernels of each library on chip_smoke.py's phase-4 gate
+    (2,048 reads over the smoke genome and the overflow contig; bwt_smem1
+    at random x / min_intv / mask; bwt_sa on the gate's seed rows; the
+    _sh twins of the first two over the tables split in four), three
+    rounds of turns, 20 launches a time."""
+    import ctypes
+
     import torch
 
     import _torch_gate as gate
@@ -134,7 +143,7 @@ def time_seed_kernels(libs, dev):
     from bwamem_tpu_torch.config import MemOptions
     from bwamem_tpu_torch.index.build import build_index
     from bwamem_tpu_torch.index.occ_packed import pack_occ
-    from bwamem_tpu_torch.ops import smem_cuda, smem_torch
+    from bwamem_tpu_torch.ops import smem_cuda, smem_sharded, smem_torch
 
     genome = np.random.default_rng(0).integers(0, 4, cs.GENOME_BP)
     rng = np.random.default_rng(5)
@@ -162,19 +171,26 @@ def time_seed_kernels(libs, dev):
     tables = (d.occ.data_ptr(), d.pk.data_ptr(), d.va.data_ptr(),
               d.C.data_ptr(), d.primary, d.n_rows)
     stream = torch.cuda.current_stream().cuda_stream
+    shards = smem_sharded.ShardedSeedTables(po, fm.ssa, fm.sa_intv,
+                                            [dev] * 4)
+    sh = ctypes.byref(shards.shard_table())
 
     def launch(lib, name):
-        if name == "bwt_smem_all":
+        if name.startswith("bwt_smem_all"):
             out = torch.empty((B, smem_torch.ALL_COLS), dtype=torch.int64,
                               device=dev)
-            rc = lib.bwt_smem_all(*tables, q.data_ptr(), L, ql.data_ptr(), B,
-                                  opt.min_seed_len, out.data_ptr(), stream)
-        elif name == "bwt_smem1":
+            args = (q.data_ptr(), L, ql.data_ptr(), B, opt.min_seed_len,
+                    out.data_ptr(), stream)
+            rc = (lib.bwt_smem_all_sh(sh, *args) if name.endswith("_sh")
+                  else lib.bwt_smem_all(*tables, *args))
+        elif name.startswith("bwt_smem1"):
             out = torch.empty((B, smem_torch.SMEM1_COLS), dtype=torch.int64,
                               device=dev)
-            rc = lib.bwt_smem1(*tables, q.data_ptr(), L, ql.data_ptr(),
-                               xd.data_ptr(), mid.data_ptr(),
-                               maskd.data_ptr(), B, out.data_ptr(), stream)
+            args = (q.data_ptr(), L, ql.data_ptr(), xd.data_ptr(),
+                    mid.data_ptr(), maskd.data_ptr(), B, out.data_ptr(),
+                    stream)
+            rc = (lib.bwt_smem1_sh(sh, *args) if name.endswith("_sh")
+                  else lib.bwt_smem1(*tables, *args))
         else:
             out = torch.empty(len(rows), dtype=torch.int64, device=dev)
             rc = lib.bwt_sa(*tables, progs.ssa.data_ptr(), len(progs.ssa),
@@ -186,7 +202,8 @@ def time_seed_kernels(libs, dev):
         return out
 
     names = list(libs)
-    for name in ("bwt_smem_all", "bwt_smem1", "bwt_sa"):
+    for name in ("bwt_smem_all", "bwt_smem1", "bwt_sa", "bwt_smem_all_sh",
+                 "bwt_smem1_sh"):
         want = launch(libs["committed"], name)
         times = {n: [] for n in names}
         for k in range(3):

@@ -2,11 +2,14 @@
 // sources with g++ and running them on the CPU: the pass body
 // (bwamem_tpu_torch/csrc/band_pass.cuh, see simt_emulate.cpp), the
 // mate-rescue and CIGAR bodies (csrc/local_sw.cuh, global_sw.cuh, see
-// simt_sw_emulate.cpp) and the seeding kernels (csrc/fm_seed.cu, whose
-// launchers loop over the grid when they are not compiled by nvcc).  It
-// declares only what those sources use.  The threads of one group of the pass run as cooperative fibers of
-// one OS thread; every warp-level primitive is a collective that parks the
-// calling fiber until the whole group has arrived.
+// simt_sw_emulate.cpp) and the seeding kernels (csrc/fm_seed.cu, see
+// simt_seed_emulate.cpp).  It declares only what those sources use.  The
+// threads of one group (a warp, or the group of threads that shares an
+// alignment) run as cooperative fibers of one OS thread; every warp-level
+// primitive is a collective that parks the calling fiber until the whole
+// group has arrived.  `__shared__` memory is a static: the emulators run
+// one group at a time, so a group's own part of it is never touched by
+// another while it runs.
 
 #pragma once
 
@@ -18,7 +21,8 @@
 #define __host__
 #define __global__
 #define __forceinline__ inline
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
+#define __shared__ static
 
 enum { cudaErrorInvalidValue = 1 };
 
@@ -30,32 +34,70 @@ inline SimtIdx threadIdx, blockIdx, blockDim, gridDim;
 namespace simt {
 // Every fiber of the running group hands in `v`; returns the array of all
 // G values (indexed by the thread's number in the group) once all have.
-const int* collective(int v);
+const long long* collective(long long v);
 int group_width();
 int thread_in_group();
+
+template <class T>
+inline T shfl(T v, int src, int width) {
+  return (T)collective((long long)v)[src & (width - 1)];
+}
 }  // namespace simt
 
-inline int __shfl_sync(unsigned, int v, int src, int width) {
-  return simt::collective(v)[src & (width - 1)];
+// 32- and 64-bit, as CUDA's overloads
+inline int __shfl_sync(unsigned, int v, int src, int width = 32) {
+  return simt::shfl(v, src, width);
+}
+inline unsigned __shfl_sync(unsigned, unsigned v, int src, int width = 32) {
+  return simt::shfl(v, src, width);
+}
+inline long __shfl_sync(unsigned, long v, int src, int width = 32) {
+  return simt::shfl(v, src, width);
+}
+inline long long __shfl_sync(unsigned, long long v, int src,
+                             int width = 32) {
+  return simt::shfl(v, src, width);
+}
+
+inline unsigned __shfl_xor_sync(unsigned, unsigned v, int mask,
+                                int width = 32) {
+  return simt::shfl(v, simt::thread_in_group() ^ mask, width);
+}
+inline long __shfl_xor_sync(unsigned, long v, int mask, int width = 32) {
+  return simt::shfl(v, simt::thread_in_group() ^ mask, width);
 }
 
 inline int __shfl_up_sync(unsigned, int v, unsigned delta, int) {
   const int me = simt::thread_in_group();
-  const int* all = simt::collective(v);
-  return me >= (int)delta ? all[me - (int)delta] : v;
+  const long long* all = simt::collective(v);
+  return me >= (int)delta ? (int)all[me - (int)delta] : v;
+}
+
+// bit k: thread k of the group passed a nonzero predicate
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const long long* all = simt::collective(pred != 0);
+  unsigned bits = 0;
+  for (int k = 0; k < simt::group_width(); ++k)
+    if (all[k]) bits |= 1u << k;
+  return bits;
+}
+
+// the threads of the group below this one (PTX %lanemask_lt)
+inline unsigned lanemask_lt() {
+  return (1u << simt::thread_in_group()) - 1u;
 }
 
 // a barrier of the group (the fibers run in turn, so memory is in order)
 inline void __syncwarp(unsigned = 0xffffffffu) { simt::collective(0); }
 
 inline int __reduce_max_sync(unsigned, int v) {
-  const int* all = simt::collective(v);
-  return *std::max_element(all, all + simt::group_width());
+  const long long* all = simt::collective(v);
+  return (int)*std::max_element(all, all + simt::group_width());
 }
 
 inline int __reduce_min_sync(unsigned, int v) {
-  const int* all = simt::collective(v);
-  return *std::min_element(all, all + simt::group_width());
+  const long long* all = simt::collective(v);
+  return (int)*std::min_element(all, all + simt::group_width());
 }
 
 inline int __vimax3_s32(int a, int b, int c) {
@@ -133,5 +175,6 @@ inline unsigned prmt_b32(unsigned x, unsigned y, unsigned s) {
 }
 
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __popcll(unsigned long long v) { return __builtin_popcountll(v); }
 inline int __ffs(unsigned v) { return __builtin_ffs((int)v); }
 inline int __clz(unsigned v) { return v ? __builtin_clz(v) : 32; }

@@ -1,8 +1,8 @@
 // The fibers that run the threads of one group of a CUDA kernel body on
 // the CPU, for the stand-in cuda_runtime.h beside this file (which declares
 // simt::collective, group_width and thread_in_group): included by the
-// emulators simt_emulate.cpp and simt_sw_emulate.cpp, each built into a
-// library of its own.
+// emulators simt_emulate.cpp, simt_sw_emulate.cpp and
+// simt_seed_emulate.cpp, each built into a library of its own.
 //
 // One group at a time, its G threads run as ucontext fibers in a ring.  A
 // collective writes the caller's value into one of two buffers (they
@@ -31,7 +31,7 @@ constexpr size_t kStack = 1 << 18;
 struct Group {
   int G = 0, cur = 0;
   unsigned base = 0;  // threadIdx.x of the group's thread 0
-  int buf[2][kMaxG];
+  long long buf[2][kMaxG];
   int calls[kMaxG];
   ucontext_t ctx[kMaxG], main_ctx;
   std::vector<char> stacks;
@@ -49,7 +49,7 @@ static void become(int k) {
   threadIdx.x = g.base + (unsigned)k;
 }
 
-const int* collective(int v) {
+const long long* collective(long long v) {
   const int me = g.cur, par = g.calls[me]++ & 1;
   g.buf[par][me] = v;
   const int next = (me + 1) % g.G;

@@ -302,37 +302,47 @@ def overflow_contig(rng, n_rep=1100):
     return hp, np.tile(rng.integers(0, 4, 40), n_rep)
 
 
-def seed_gate_reads(rng, genome, hp, rep, n, read_len=150):
-    """Reads for the seeding gate over a genome and the overflow contig
-    (hp, rep): all-A reads and reads of the homopolymer runs, 16 reads of
-    the repeat, all-N reads, reads with N runs (interior, at either end,
-    one base, nearly all), reads shorter than -k (1..18 bases), then reads
-    of the genome with 1% substitutions, every other one
-    reverse-complemented, to n reads in all.  int64 codes, N = 4."""
+def seed_hard_reads(rng, genome, hp, rep, read_len=150):
+    """The reads seed_gate_reads makes to order, in its order: all-A reads
+    and reads of the homopolymer runs, 16 reads of the repeat, all-N
+    reads, reads with N runs (interior, at either end, one base, nearly
+    all), reads shorter than -k (1..18 bases).  int64 codes, N = 4."""
     L = read_len
-    span = np.arange(L)
-
-    def from_genome(n):
-        pos = rng.integers(0, len(genome) - L, n)
-        R = genome[pos[:, None] + span].astype(np.int64)
-        mut = rng.random(R.shape) < 0.01
-        R[mut] = rng.integers(0, 4, int(mut.sum()))
-        R[1::2] = 3 - R[1::2, ::-1]
-        return list(R)
-
     reads = [np.zeros(L, np.int64), np.zeros(2 * L // 5, np.int64)]
     reads += [hp[o:o + L] for o in range(0, len(hp) - L, 97)]
     reads += [rep[o:o + L] for o in rng.integers(0, len(rep) - L, 16)]
     reads += [np.full(L, 4, np.int64), np.full(L // 4, 4, np.int64)]
     runs = ((4 * L // 15, 7 * L // 15), (4 * L // 5, L), (0, L // 15),
             (L // 2, L // 2 + 1), (L // 15, 14 * L // 15), (1, L - 1))
-    for r, (a, b) in zip(from_genome(len(runs)), runs):
+    for r, (a, b) in zip(genome_reads(rng, genome, len(runs), L), runs):
         r[a:b] = 4
         reads.append(r)
-    reads += [g[:k] for g, k in zip(from_genome(18), range(1, 19))]
+    reads += [g[:k] for g, k in zip(genome_reads(rng, genome, 18, L),
+                                    range(1, 19))]
+    return reads
+
+
+def genome_reads(rng, genome, n, read_len):
+    """n reads of the genome with 1% substitutions, every other one
+    reverse-complemented.  int64 codes."""
+    span = np.arange(read_len)
+    pos = rng.integers(0, len(genome) - read_len, n)
+    R = genome[pos[:, None] + span].astype(np.int64)
+    mut = rng.random(R.shape) < 0.01
+    R[mut] = rng.integers(0, 4, int(mut.sum()))
+    R[1::2] = 3 - R[1::2, ::-1]
+    return list(R)
+
+
+def seed_gate_reads(rng, genome, hp, rep, n, read_len=150):
+    """Reads for the seeding gate over a genome and the overflow contig
+    (hp, rep): the hard reads of seed_hard_reads, then reads of the genome
+    with 1% substitutions, every other one reverse-complemented, to n
+    reads in all.  int64 codes, N = 4."""
+    reads = seed_hard_reads(rng, genome, hp, rep, read_len)
     if n < len(reads):
         raise ValueError(f"{n} reads asked for, {len(reads)} made to order")
-    return reads + from_genome(n - len(reads))
+    return reads + genome_reads(rng, genome, n - len(reads), read_len)
 
 
 def read_matrix(reads):

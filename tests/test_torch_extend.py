@@ -259,7 +259,7 @@ def test_extend_batch_matches_jax_package(with_prev):
         blk_b=BLK, interpret=True)
     got = extend.extend_batch(q, qlen, t, tlen, w, h0, max_ins, max_del,
                               types.params_from_jax(jp), prev_score=prev,
-                              blk_b=BLK)
+                              blk_b=BLK, device="cpu")
     assert isinstance(got, types.ExtendOut)
     for f in types.ExtendOut._fields:
         g = getattr(got, f)
@@ -268,6 +268,23 @@ def test_extend_batch_matches_jax_package(with_prev):
     for a, b in zip(extend.pack_scal(qlen, tlen, w, h0, blk_b=BLK),
                     extend_pallas.pack_scal(qlen, tlen, w, h0, blk_b=BLK)):
         assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("fn", ["extend_batch", "extend_batch_core"])
+def test_extend_batch_defaults_to_the_card(fn):
+    """Called without device=, the per-phase helpers ask for the card:
+    where there is none they raise device.resolve's RuntimeError, and do
+    not quietly run the plain version on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    q, qlen, t, tlen, w, h0, max_ins, max_del = _tasks(6, BLK, 40, 80)
+    prm = types.params_from_jax(ExtendParams(
+        mat_flat=jnp.asarray(build_mat(1, 4).astype(np.int32).ravel()), m=5,
+        o_del=6, e_del=1, o_ins=6, e_ins=1, zdrop=100))
+    args = ((q, qlen, t, tlen, w, h0, max_ins, max_del, prm)
+            if fn == "extend_batch" else (q, qlen, t, tlen, w, h0, prm))
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        getattr(extend, fn)(*args, blk_b=BLK)
 
 
 def _oracle_mismatches(out, q, t, scal, prm):

@@ -37,20 +37,10 @@
 // The cell type is a parameter of the rows (RegRow, SmemRow) and, through
 // them, of the pass (run_pass: band_pass for int32_t cells, band_pass16
 // for int16_t).  With int32_t cells every column has a register (or
-// shared-memory word) of its own.
-// With int16_t cells (the Pallas kernels' compute_dtype=jnp.int16, -/+2^14
-// sentinels) a register holds TWO columns and the recurrence runs on both
-// halves at once with Hopper's packed DPX instructions
-// (__viaddmax_s16x2[_relu], __vimax3_s16x2, __vimin3_s16x2,
-// __vibmax_s16x2): a thread's strip of C columns is two half-strips, pair
-// p holding column p in its low half and column p + C/2 in its high half,
-// so the two serial F chains run side by side and the diagonal moves a
-// whole register at a time.  The band masks come from packed saturating
-// arithmetic, not from compares; the substitution scores of a pair are one
-// prmt.b32.  The scan across strips, the reductions and the control flow
-// are per row and stay in int32.  The 16-bit pass equals the 32-bit one
-// while no intermediate leaves the 16-bit range, which the wrapper
-// (ops/extend_cuda.check_i16_range) enforces from host data.
+// shared-memory word) of its own.  The int16_t cells (two columns a
+// register, Hopper's packed DPX instructions), their pass and their launch
+// table are in band_pass16.cuh, which this header includes after the
+// 32-bit pass; that file says what bounds the 16-bit pass.
 //
 // Base codes are 0..3 with N = 4 (any code in 4..127 counts as N).  Each
 // translation unit that includes this header gets its own copy of the
@@ -109,41 +99,6 @@ __device__ __forceinline__ int score_of(unsigned word, int selector) {
   return (int)prmt_b32(word, 0xffffffffu, (unsigned)selector);
 }
 
-// ---- packed 16-bit pairs -------------------------------------------------
-
-constexpr unsigned kNeg2 = 0xC000C000u;  // -2^14 in both halves
-constexpr unsigned kMin2 = 0x80008000u;  // -2^15 in both halves
-constexpr unsigned kOne2 = 0x00010001u;
-
-__device__ __forceinline__ unsigned pack2(int lo, int hi) {
-  return ((unsigned)lo & 0xffffu) | ((unsigned)hi << 16);
-}
-__device__ __forceinline__ unsigned dup2(int v) {
-  return ((unsigned)v & 0xffffu) * 0x10001u;
-}
-__device__ __forceinline__ int lo16(unsigned v) { return (int)(short)v; }
-__device__ __forceinline__ int hi16(unsigned v) { return (int)v >> 16; }
-// per half: x where the half of mask m is 0xffff, y where it is 0
-__device__ __forceinline__ unsigned sel2(unsigned m, unsigned x, unsigned y) {
-  return (x & m) | (y & ~m);
-}
-// per half: a + b (one DPX instruction: max(a + b, -2^15))
-__device__ __forceinline__ unsigned add2(unsigned a, unsigned b) {
-  return __viaddmax_s16x2(a, b, kMin2);
-}
-// per half: 0xffff where the half of v (>= 0) is not 0, else 0
-__device__ __forceinline__ unsigned nonzero2(unsigned v) {
-  return __vimin3_s16x2(v, kOne2, kOne2) * 0xffffu;
-}
-// The selector that makes prmt.b32 of a row's score word give the scores
-// of two query codes, sign-extended into the two halves.
-__device__ __forceinline__ unsigned pair_selector(int c_lo, int c_hi) {
-  c_lo = (unsigned)c_lo > 3u ? 4 : c_lo;
-  c_hi = (unsigned)c_hi > 3u ? 4 : c_hi;
-  return (unsigned)(c_lo | ((c_lo | 8) << 4) | (c_hi << 8) |
-                    ((c_hi | 8) << 12));
-}
-
 // The strip of one thread in registers: C columns of H, E and the query
 // (as score selectors).  With int16_t cells, C / 2 registers of pairs.
 template <int C, class CellT>
@@ -158,21 +113,6 @@ struct RegRow {
   __device__ __forceinline__ void set_h(int c, int v) { hv[c] = v; }
   __device__ __forceinline__ void set_e(int c, int v) { ev[c] = v; }
   __device__ __forceinline__ void set_q(int c, int v) { qv[c] = v; }
-};
-
-template <int C>
-struct RegRow<C, int16_t> {
-  static_assert(C % 2 == 0, "a packed strip holds whole pairs");
-  using Cell = int16_t;
-  static constexpr int kC = C;
-  unsigned hv[C / 2], ev[C / 2], qv[C / 2];
-  __device__ __forceinline__ int ncol() const { return C; }
-  __device__ __forceinline__ unsigned h(int p) const { return hv[p]; }
-  __device__ __forceinline__ unsigned e(int p) const { return ev[p]; }
-  __device__ __forceinline__ unsigned q(int p) const { return qv[p]; }
-  __device__ __forceinline__ void set_h(int p, unsigned v) { hv[p] = v; }
-  __device__ __forceinline__ void set_e(int p, unsigned v) { ev[p] = v; }
-  __device__ __forceinline__ void set_q(int p, unsigned v) { qv[p] = v; }
 };
 
 // The strip of one thread of a warp in shared memory: n columns, element
@@ -197,25 +137,6 @@ struct SmemRow {
   __device__ __forceinline__ void set_e(int c, int v) { ep[c * 32] = v; }
   __device__ __forceinline__ void set_q(int c, int v) {
     qp[c * 32] = (int8_t)(v & 7);  // the code is the selector's low bits
-  }
-};
-
-template <>
-struct SmemRow<int16_t> {
-  using Cell = int16_t;
-  static constexpr int kC = 0;
-  unsigned* hp;
-  unsigned* ep;
-  uint16_t* qp;
-  int n;  // columns: twice the pairs
-  __device__ __forceinline__ int ncol() const { return n; }
-  __device__ __forceinline__ unsigned h(int p) const { return hp[p * 32]; }
-  __device__ __forceinline__ unsigned e(int p) const { return ep[p * 32]; }
-  __device__ __forceinline__ unsigned q(int p) const { return qp[p * 32]; }
-  __device__ __forceinline__ void set_h(int p, unsigned v) { hp[p * 32] = v; }
-  __device__ __forceinline__ void set_e(int p, unsigned v) { ep[p * 32] = v; }
-  __device__ __forceinline__ void set_q(int p, unsigned v) {
-    qp[p * 32] = (uint16_t)v;
   }
 };
 
@@ -271,148 +192,6 @@ __device__ __forceinline__ int scan_f(int f, int strip_ins, int tg,
   }
   v = __shfl_up_sync(gmask, v, 1, G);
   return tg == 0 ? 0 : imax(v - strip_ins * (tg - 1), 0);
-}
-
-// The masks of pair p of a strip of np pairs, per half: m where the
-// column is in the band (lo <= c < hi), w where it is in the band or at
-// its end (lo <= c <= hi), 0xffff or 0.  lo1 = dup2(1 - lo), hi0 =
-// dup2(hi), hi1 = dup2(hi + 1): min(max(c - lo + 1, 0), max(hi - c, 0), 1)
-// is 1 inside and 0 outside, with no compare.
-__device__ __forceinline__ void pair_masks(int p, int np, unsigned lo1,
-                                           unsigned hi0, unsigned hi1,
-                                           unsigned& m, unsigned& w) {
-  const unsigned c = pack2(p, p + np), nc = pack2(-p, -p - np);
-  const unsigned above = __viaddmax_s16x2_relu(c, lo1, 0u);
-  m = __vimin3_s16x2(above, __viaddmax_s16x2_relu(nc, hi0, 0u), kOne2) *
-      0xffffu;
-  w = __vimin3_s16x2(above, __viaddmax_s16x2_relu(nc, hi1, 0u), kOne2) *
-      0xffffu;
-}
-
-// The two sweeps of one row over a strip of int16_t cells, two columns a
-// register: pair p holds strip column p (low half) and p + np (high
-// half), so the strip is two half-strips whose F chains run side by side.
-// Which w a column gets when the band is empty does not matter: that row's
-// maximum is 0 and the pass ends with it.  Leaves key and hl as the 32-bit
-// sweeps in band_pass do, and the first and last in-band column whose new
-// H or E is not 0 (kBig and begc - 1 where there is none).
-template <int G, class Row>
-__device__ __forceinline__ void sweep_row16(
-    Row& row, unsigned sw, const Prm& p, int oe_ins, int oe_del, int lo,
-    int hi, int tg, int j0, int h1_first, int begc, unsigned gmask, int& key,
-    int& hl, int& first_nz, int& last_nz) {
-  constexpr int kP = Row::kC > 0 ? Row::kC / 2 : 1;
-  const int np = Row::kC > 0 ? Row::kC / 2 : row.ncol() / 2;
-  const unsigned noe_ins = dup2(-oe_ins), noe_del = dup2(-oe_del);
-  const unsigned ne_ins = dup2(-p.e_ins), ne_del = dup2(-p.e_del);
-  const unsigned lo1 = dup2(1 - lo), hi0 = dup2(hi), hi1 = dup2(hi + 1);
-  // the pairs that this row can touch: the hull of the columns [lo, hi]
-  // in the low half-strip and in the high one
-  int p0 = 0, p1 = np;
-  if constexpr (Row::kC == 0) {
-    p0 = np;
-    p1 = 0;
-    const int la = imax(lo, 0), lb = imin(hi, np - 1);
-    if (la <= lb) {
-      p0 = la;
-      p1 = lb + 1;
-    }
-    const int ha = imax(lo - np, 0), hb = imin(hi - np, np - 1);
-    if (ha <= hb) {
-      p0 = imin(p0, ha);
-      p1 = imax(p1, hb + 1);
-    }
-  }
-  unsigned mk[kP], wk[kP];  // the masks, kept from pass 1 where in registers
-
-  // pass 1: M replaces H(i-1, j-1) in the row, and the halves of f become
-  // the F that leaves each half-strip when none enters it
-  unsigned f = 0;
-#pragma unroll
-  for (int pp = p0; pp < p1; ++pp) {
-    unsigned m, w;
-    pair_masks(pp, np, lo1, hi0, hi1, m, w);
-    if constexpr (Row::kC > 0) {
-      mk[pp] = m;
-      wk[pp] = w;
-    }
-    const unsigned hv = row.h(pp);
-    const unsigned sc = prmt_b32(sw, 0xffffffffu, row.q(pp));
-    const unsigned M = add2(hv, sc) & nonzero2(hv);
-    row.set_h(pp, sel2(m, M, hv));
-    f = __viaddmax_s16x2_relu(f, ne_ins, add2(sel2(m, M, kNeg2), noe_ins));
-  }
-  // the F entering the strip (the scan is per row: int32), and the F
-  // entering its high half-strip
-  const int f_lo = lo16(f), half_ins = p.e_ins * np;
-  const int f_in = scan_f<G>(imax(hi16(f), f_lo - half_ins), 2 * half_ins,
-                             tg, gmask);
-  f = pack2(f_in, imax(f_lo, f_in - half_ins));
-
-  // pass 2: H, its maximum with its pair number per half, the new E and
-  // the diagonal for the next row
-  unsigned prev = 0;      // the pair before: H(i, j-1), 0 outside the band
-  unsigned hmax = 0;      // max of H per half
-  int at_lo = 0, at_hi = 0;  // the last pair that reached it
-  unsigned hl2 = 0;       // H(i, endc-1) in the half that owns column endc
-  unsigned nz = 0;        // bit p (low half) and 16 + p (high half)
-#pragma unroll
-  for (int pp = p0; pp < p1; ++pp) {
-    unsigned m, w;
-    if constexpr (Row::kC > 0) {
-      m = mk[pp];
-      w = wk[pp];
-    } else {
-      pair_masks(pp, np, lo1, hi0, hi1, m, w);
-    }
-    const unsigned hv = row.h(pp);
-    const unsigned M = sel2(m, hv, kNeg2);
-    const unsigned e = row.e(pp);
-    const unsigned h = __vimax3_s16x2(M, e, f) & m;
-    f = __viaddmax_s16x2_relu(f, ne_ins, add2(M, noe_ins));
-    bool ge_hi, ge_lo;
-    hmax = __vibmax_s16x2(h, hmax, &ge_hi, &ge_lo);
-    if (ge_lo) at_lo = pp;
-    if (ge_hi) at_hi = pp;
-    // 0 at the band's end (w and not m)
-    const unsigned en =
-        __viaddmax_s16x2_relu(e, ne_del, add2(M, noe_del)) & (m | ~w);
-    row.set_e(pp, sel2(w, en, e));
-    if (pp > 0) {
-      row.set_h(pp, sel2(w, prev, hv));
-      hl2 |= prev & w & ~m;
-      nz |= (__vimin3_s16x2(prev | en, kOne2, kOne2) & m) << pp;
-    }
-    prev = h;
-  }
-  // pair 0 takes its diagonals from the strip before (low half) and from
-  // the end of the low half-strip (high half)
-  const unsigned last = p1 == np ? prev : 0u;  // H of columns np-1, 2np-1
-  const int last_lo = (int)(last & 0xffffu), last_hi = (int)(last >> 16);
-  int up = __shfl_up_sync(gmask, last_hi, 1, G);
-  if (tg == 0) up = h1_first;
-  if (p0 == 0) {
-    unsigned m, w;
-    if constexpr (Row::kC > 0) {
-      m = mk[0];
-      w = wk[0];
-    } else {
-      pair_masks(0, np, lo1, hi0, hi1, m, w);
-    }
-    const unsigned h0new = pack2(up, last_lo);
-    row.set_h(0, sel2(w, h0new, row.h(0)));
-    hl2 |= h0new & w & ~m;
-    nz |= __vimin3_s16x2(h0new | row.e(0), kOne2, kOne2) & m;
-  }
-  hl = (int)((hl2 & 0xffffu) | (hl2 >> 16));  // one half at most is set
-  // column endc is past the row
-  if (tg == G - 1 && hi == 2 * np) hl = last_hi;
-  key = imax((int)((hmax & 0xffffu) << 10) + j0 + at_lo,
-             (int)((hmax >> 16) << 10) + j0 + np + at_hi);
-  // bit b of nz is strip column (b & 15) + (b < 16 ? 0 : np)
-  const int b0 = __ffs(nz) - 1, b1 = 31 - __clz(nz);
-  first_nz = nz ? j0 + (b0 & 15) + (b0 >> 4) * np : kBig;
-  last_nz = nz ? j0 + (b1 & 15) + (b1 >> 4) * np : begc - 1;
 }
 
 // One banded extension pass of alignment `lane` by the group of G threads
@@ -573,112 +352,11 @@ __device__ __forceinline__ PassOut band_pass(
   return r;
 }
 
-// band_pass for a row of packed int16_t cells: the same arguments, row
-// bookkeeping (clamp, maxima, Z-drop, trim: per row, int32) and result,
-// around sweep_row16.  It is a function of its own so that the 32-bit pass
-// above compiles to what it was before the cells had a type: folding the
-// two into one template cost the 32-bit fused kernel 5-11%, and sharing
-// only the end of the row (from the two reductions to the trim) as an
-// inlined helper still 4-8% at the (160, 320) windows (chip_tune.py
-// --against, H100 at 700 W).  A change to the Z-drop or trim rule goes into
-// both passes; tests/test_torch_simt.py and chip_smoke.py hold each to the
-// plain version.
-template <int G, class Row>
-__device__ __forceinline__ PassOut band_pass16(
-    Row& row, const int8_t* __restrict__ q, int qmax,
-    const int8_t* __restrict__ t, int tmax, int64_t B, int64_t lane, int qlen,
-    int tlen, int w, int h0, bool run, const Prm& p, int tg) {
-  PassOut r{h0, -1, -1, -1, -1, 0};
-  if (!run || qlen <= 0 || tlen <= 0 || h0 <= 0) return r;
-  if (qlen > qmax) qlen = qmax;  // memory safety; callers keep qlen <= qmax
-  const unsigned gmask = group_mask<G>();
-  const int oe_del = p.o_del + p.e_del;
-  const int oe_ins = p.o_ins + p.e_ins;
-  const int ncol = Row::kC > 0 ? Row::kC : row.ncol();
-  const int j0 = tg * ncol;
+}  // namespace
 
-  // the query strip, and the first (virtual) row: h0, h0 - oe_ins, then
-  // decreasing by e_ins down to 0
-  const int np = ncol / 2;
-#pragma unroll
-  for (int pp = 0; pp < np; ++pp) {
-    int code[2], first[2];
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int j = j0 + pp + k * np;
-      code[k] = j < qlen ? q[(int64_t)j * B + lane] : 4;
-      const int v = imax(h0 - oe_ins - (j - 1) * p.e_ins, 0);
-      first[k] = j == 0 ? h0 : (j <= qlen ? v : 0);
-    }
-    row.set_q(pp, pair_selector(code[0], code[1]));
-    row.set_h(pp, pack2(first[0], first[1]));
-    row.set_e(pp, 0u);
-  }
+#include "band_pass16.cuh"
 
-  int best = h0, max_i = -1, max_j = -1, max_ie = -1, gscore = -1;
-  int max_off = 0;
-  int beg = 0, end = qlen;
-  bool live = true;
-  for (int i0 = 0; live && i0 < tlen; i0 += G) {
-    // the target bases of rows i0 .. i0+G-1, one per thread
-    const int tchunk = t[(int64_t)imin(i0 + tg, tmax - 1) * B + lane];
-    const int i_end = imin(i0 + G, tlen);
-    for (int i = i0; i < i_end; ++i) {
-      const int ti = __shfl_sync(gmask, tchunk, i - i0, G);
-      const unsigned sw = score_word(ti, p.a, p.b);
-      // band clamp
-      const int begc = imax(beg, i - w);
-      const int endc = imin(imin(end, i + w + 1), qlen);
-      const int h1_first =
-          begc == 0 ? imax(h0 - (p.o_del + p.e_del * (i + 1)), 0) : 0;
-      const int lo = begc - j0, hi = endc - j0;  // in band: lo <= c < hi
-      int key, hl;  // max of H*1024 + j; H(i, endc-1)
-      // the first and last in-band column whose new H or E is not 0
-      int first_col, last_col;
-      sweep_row16<G>(row, sw, p, oe_ins, oe_del, lo, hi, tg, j0, h1_first,
-                     begc, gmask, key, hl, first_col, last_col);
-
-      const int kmax = __reduce_max_sync(gmask, key);
-      const int row_max = kmax >> 10, mj = kmax & 1023;
-      int h1_last = __reduce_max_sync(gmask, hl);
-      if (endc <= begc) h1_last = h1_first;
-      if (endc == qlen) {
-        if (!(gscore > h1_last)) max_ie = i;
-        gscore = imax(gscore, h1_last);
-      }
-      if (row_max == 0) {
-        live = false;
-        break;
-      }
-      if (row_max > best) {
-        best = row_max;
-        max_i = i;
-        max_j = mj;
-        max_off = imax(max_off, mj >= i ? mj - i : i - mj);
-      } else if (p.zdrop > 0) {
-        const int di = i - max_i, dj = mj - max_j;
-        const int pen = di > dj ? (di - dj) * p.e_del : (dj - di) * p.e_ins;
-        if (best - row_max - pen > p.zdrop) {
-          live = false;
-          break;
-        }
-      }
-      // two-sided zero-run band trim for the next row
-      const int first_nz = __reduce_min_sync(gmask, first_col);
-      const int last_in = __reduce_max_sync(gmask, last_col);
-      const int last_nz = imax(last_in, h1_last != 0 ? endc : begc - 1);
-      beg = imin(first_nz, endc);
-      end = imin(last_nz + 2, qlen);
-    }
-  }
-  r.best = best;
-  r.max_j = max_j;
-  r.max_i = max_i;
-  r.max_ie = max_ie;
-  r.gscore = gscore;
-  r.max_off = max_off;
-  return r;
-}
+namespace {
 
 // The pass for the row's cell type.
 template <int G, class Row>
@@ -787,13 +465,6 @@ __device__ __forceinline__ void extend_fused_body(
   }
 }
 
-// The strip length that cells of type Cell run a launch-table row of C
-// columns with: packed pairs need an even number.
-template <int C, class Cell>
-constexpr int strip_columns() {
-  return sizeof(Cell) == 2 ? (C + 1) / 2 * 2 : C;
-}
-
 // Blocks and dynamic shared-memory bytes of a launch over B alignments
 // with groups of G threads and strips of `ncol` columns.
 template <int G, int C, class Cell>
@@ -801,9 +472,8 @@ inline void launch_shape(int64_t B, int qmax, unsigned* blocks, int* ncol,
                          size_t* smem) {
   const int per_block = kThreads / G;
   *blocks = (unsigned)((B + per_block - 1) / per_block);
-  *ncol = C > 0 ? C : strip_columns<1, Cell>() == 2
-                          ? ((qmax + 63) / 64) * 2
-                          : (qmax + 31) / 32;
+  *ncol = C > 0 ? C : sizeof(Cell) == 2 ? ((qmax + 63) / 64) * 2
+                                        : (qmax + 31) / 32;
   *smem = C > 0 ? 0 : smem_row_bytes<Cell>(*ncol);
 }
 
@@ -819,6 +489,18 @@ inline int dispatch_shape(int qmax, Fn&& fn) {
 #undef BWT_ROW
   if (qmax <= 1024) return fn.template run<32, 0>();
   return (int)cudaErrorInvalidValue;
+}
+
+// dispatch_shape with cells of type Cell: the 16-bit cells run under
+// their own table (dispatch_shape16), the 32-bit cells under the one
+// above.
+template <class Cell, class Fn>
+inline int dispatch_cells(int qmax, Fn&& fn) {
+  if constexpr (sizeof(Cell) == 2) {
+    return dispatch_shape16(qmax, fn);
+  } else {
+    return dispatch_shape(qmax, fn);
+  }
 }
 
 }  // namespace

@@ -9,8 +9,9 @@
 // Pallas kernel and to the plain PyTorch version (ops/extend_torch.py).
 // The Pallas call's compute_dtype=jnp.int16 is bwt_extend_fused_i16: the
 // same kernel with int16_t cells, two query columns a register under the
-// packed DPX instructions (band_pass.cuh), equal to the 32-bit result
-// inside the range that ops/extend_cuda.check_i16_range states.
+// packed DPX instructions (band_pass16.cuh, with a launch table of its
+// own), equal to the 32-bit result inside the range that
+// ops/extend_cuda.check_i16_range states.
 //
 // Design: a group of cooperating threads per alignment runs the four
 // passes in turn, each the shared pass of band_pass.cuh (strips of query
@@ -64,12 +65,14 @@ struct LaunchFused {
 
   template <int G, int C>
   int run() const {
-    constexpr int kC = strip_columns<C, Cell>();
     unsigned blocks;
     int ncol;
     size_t smem;
-    launch_shape<G, kC, Cell>(B, QL > QR ? QL : QR, &blocks, &ncol, &smem);
-    extend_fused_kernel<G, kC, Cell><<<blocks, kThreads, smem, stream>>>(
+    launch_shape<G, C, Cell>(B, QL > QR ? QL : QR, &blocks, &ncol, &smem);
+    if constexpr (sizeof(Cell) == 2 && G == 32 && C > 0) {
+      smem = residency_cap16<extend_fused_kernel<G, C, Cell>>(blocks);
+    }
+    extend_fused_kernel<G, C, Cell><<<blocks, kThreads, smem, stream>>>(
         ql, QL, tl, TL, qr, QR, tr, TR, scal, B, p, out, ncol);
     return (int)cudaGetLastError();
   }
@@ -89,7 +92,7 @@ int launch_fused(const void* ql, int QL, const void* tl, int TL,
                             static_cast<const int32_t*>(scal), (int64_t)B, p,
                             static_cast<int*>(out),
                             static_cast<cudaStream_t>(stream)};
-  return dispatch_shape(QL > QR ? QL : QR, l);
+  return dispatch_cells<Cell>(QL > QR ? QL : QR, l);
 }
 
 }  // namespace

@@ -10,8 +10,9 @@
 // to the plain PyTorch version (ops/extend_torch.extend_t).  The Pallas
 // call's compute_dtype=jnp.int16 is bwt_extend_t_i16: the same kernel with
 // int16_t cells, two query columns a register under the packed DPX
-// instructions (band_pass.cuh), equal to the 32-bit result inside the
-// range that ops/extend_cuda.check_i16_range states.
+// instructions (band_pass16.cuh, with a launch table of its own), equal to
+// the 32-bit result inside the range that ops/extend_cuda.check_i16_range
+// states.
 //
 // Design: a group of cooperating threads per alignment runs the shared
 // pass of band_pass.cuh (strips of query columns per thread, the H/E row
@@ -68,12 +69,14 @@ struct LaunchT {
 
   template <int G, int C>
   int run() const {
-    constexpr int kC = strip_columns<C, Cell>();
     unsigned blocks;
     int ncol;
     size_t smem;
-    launch_shape<G, kC, Cell>(B, qmax, &blocks, &ncol, &smem);
-    extend_t_kernel<G, kC, Cell><<<blocks, kThreads, smem, stream>>>(
+    launch_shape<G, C, Cell>(B, qmax, &blocks, &ncol, &smem);
+    if constexpr (sizeof(Cell) == 2 && G == 32 && C > 0) {
+      smem = residency_cap16<extend_t_kernel<G, C, Cell>>(blocks);
+    }
+    extend_t_kernel<G, C, Cell><<<blocks, kThreads, smem, stream>>>(
         q, qmax, t, tmax, scal, B, p, out, ncol);
     return (int)cudaGetLastError();
   }
@@ -89,7 +92,7 @@ int launch_t(const void* q, int qmax, const void* t, int tmax,
                         static_cast<const int32_t*>(scal), (int64_t)B, p,
                         static_cast<int*>(out),
                         static_cast<cudaStream_t>(stream)};
-  return dispatch_shape(qmax, l);
+  return dispatch_cells<Cell>(qmax, l);
 }
 
 }  // namespace

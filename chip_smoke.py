@@ -23,6 +23,13 @@ Phases, each of which fails the run (exit code 1, no result line):
              at the reference hardware's caps (qlen 255, tlen 2047, 8
              lanes), fields 0-5 against the scalar oracle on 96 lanes,
              and timed at bench.py's shape;
+  3b. kernel16 both 16-bit kernels at one query window per row of their
+             own launch table (BWT_LAUNCH_TABLE16) and one in the
+             shared-memory row above it, each with enough lanes that the
+             dispatch takes that row: random, hard-case and band-edge
+             batches (band edges on every pair boundary and on the
+             half-strip seam), zdrop 100 and 0, against the plain 16-bit
+             version and the 32-bit kernel;
   4. seed    the seeding kernels (bwt_smem_all, bwt_smem1, bwt_sa) against
              their plain PyTorch versions on the card, exactly, on 2,048
              reads over the smoke genome plus a contig made to overflow the
@@ -87,7 +94,10 @@ Phases, each of which fails the run (exit code 1, no result line):
              (make_fused_idx_backend) and the four-pass backend
              (make_raw_t_backend); records byte-identical to the
              resident run's, each kernel's launches == its dispatches
-             and no other kernel launched;
+             and no other kernel launched; then each kernel timed on the
+             inputs of its widest launch there (path_* in its entry of
+             the `kernels` line: the shape its counted launches take,
+             beside bench.py's and the gate's);
  11. pe-dev  a second PE set made for the device protocols (2,048 pairs:
              an eighth of the mates on the wrong strand and an eighth
              substituted every 9 bases, so the seeder cannot place them
@@ -151,6 +161,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import glob
 import io
 import json
 import os
@@ -236,7 +247,7 @@ def ptxas_summary(log_text):
     the <group, strip, cell type> template arguments: i = int32_t, s =
     int16_t; <group, strip> for the rescue and CIGAR kernels), registers,
     and stack and spill bytes where there are any (for the SMEM kernels
-    always)."""
+    and the 16-bit instantiations always)."""
     out, name = [], "?"
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -252,7 +263,8 @@ def ptxas_summary(log_text):
             if seed:   # the _sh instantiations read a ShardedOcc
                 name = seed.group(1) + ("<sh>" if "ShardedOcc" in name
                                         or "rank4" in name else "")
-        warp = name.startswith(SMEM_KERNELS)   # stack and spills, even 0
+        # stack and spills, even 0: the SMEM kernels and the 16-bit pass
+        warp = name.startswith(SMEM_KERNELS) or name.endswith(",s>")
         m = re.search(r"(\d+) bytes stack frame", line)
         if m and (int(m.group(1)) or warp):
             out.append(f"{name} {m.group(1)} B stack")
@@ -495,6 +507,80 @@ def phase_kernel_t(dev):
         lambda: extend_torch.extend_t(*args, bounds, prm,
                                       compute_dtype=torch.int16),
         cells[0], args, 8 * scal.shape[1])
+
+
+def phase_kernel_i16_rows(dev):
+    """Both 16-bit kernels (extend_t_i16, extend_fused_i16) at one query
+    window per row of their own launch table (BWT_LAUNCH_TABLE16) and one
+    in the shared-memory row above it (and at 320 columns there, a
+    multiple of 64), 1,024 lanes a batch: a random
+    batch, the hard-case batch and a band-edge batch (lanes repeated up to
+    that number), zdrop on and off, and where the row's strips end at the
+    window the lanes whose trim reads past the last strip
+    (_torch_gate.TRIM_PAST_ROW), every output row and lane against the
+    plain 16-bit version and against the 32-bit kernel."""
+    import torch
+
+    import _torch_gate as gate
+    from bwamem_tpu_torch.ops import _build, extend_cuda, extend_torch
+
+    table = gate.launch_table16(os.path.join(_build.CSRC,
+                                             "launch_table.cuh"))
+    windows = list(table) + [(table[-1][0] + 1, 32, 0)] + [
+        (q, 32, 0) for q in sorted(gate.TRIM_PAST_ROW) if q > table[-1][0]]
+    B = 1024
+    for qmax, g, c in windows:
+        C = c or 2 * -(-qmax // 64)
+        dims = (qmax, qmax + 64, max(qmax - 9, 1), qmax + 40)
+        batches = [
+            ("random", gate.random_t_batch(qmax, B, qmax, qmax + 64,
+                                           n_pad=100)),
+            ("hard cases", gate.tile_lanes(gate.hard_t_batch(5, qmax), B)),
+            ("band edges", gate.tile_lanes(
+                gate.edge_t_batch(qmax, qmax, C), B)),
+            ("random", gate.random_fused_batch(qmax, B, dims, n_pad=100)),
+            ("hard cases", gate.tile_lanes(gate.hard_fused_batch(11, qmax),
+                                           B)),
+            ("band edges", gate.tile_lanes(
+                gate.edge_fused_batch(qmax, qmax, C), B))]
+        prms = []
+        for zdrop in (100, 0):
+            prm = PRM.copy()
+            prm[6] = zdrop
+            prms.append(prm)
+        batches = [(what, batch, prms) for what, batch in batches]
+        if qmax in gate.TRIM_PAST_ROW and qmax == g * C:
+            # the strips end at the window: lanes whose trim reads column
+            # endc past the last strip, under their own scoring
+            batch, prm = gate.trim_past_row_t_batch(qmax, B)
+            batches.append(("trim past the row", batch, [prm]))
+        for what, batch, prms in batches:
+            t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                 for x in batch[:-1]]
+            fused = len(t) == 5
+            name = "extend_fused" if fused else "extend_t"
+            kernel = (extend_cuda.extend_batch_raw_fused if fused
+                      else extend_cuda.extend_batch_raw_t)
+            plain = (extend_torch.extend_fused if fused
+                     else extend_torch.extend_t)
+            for prm in prms:
+                got = kernel(*t, batch[-1], prm, compute_dtype=torch.int16)
+                got32 = kernel(*t, batch[-1], prm)
+                torch.cuda.synchronize()
+                want = plain(*t, batch[-1], prm, compute_dtype=torch.int16)
+                for other, against in ((want, "plain 16-bit version"),
+                                       (got32, "32-bit kernel")):
+                    if not torch.equal(got, other):
+                        bad = (got != other).nonzero()[:5].tolist()
+                        fail(f"{name}_i16 != {against} on the {what} batch at "
+                             f"qmax {qmax}, {t[0].shape[1]} lanes (table row "
+                             f"<{g},{c}>), scoring {prm.tolist()}: first "
+                             f"(row, lane) {bad}")
+        log(f"extend_t_i16 and extend_fused_i16 == plain 16-bit == 32-bit "
+            f"kernel at qmax {qmax}, >= {B} lanes (16-bit table row "
+            f"ROW({qmax}, {g}, {c})): "
+            + ", ".join(dict.fromkeys(w for w, _, _ in batches))
+            + " batches, zdrop 100 and 0, every row and lane")
 
 
 def seed_bound(stats, n_bytes):
@@ -1620,7 +1706,9 @@ def phase_i16_path(run, dev):
     the 16-bit cell backends (a library argument: there is no CLI flag),
     in -b 2048 chunks: the resident fused backend, then the four-pass
     backend; records byte-identical to the resident CLI run's, and each
-    run launches its 16-bit kernel once a dispatch and no other kernel."""
+    run launches its 16-bit kernel once a dispatch and no other kernel.
+    Returns each kernel's launches and its times on the widest launch's
+    inputs (time_path_batch), by kernel name."""
     import torch
 
     from bwamem_tpu_torch.__main__ import load_index
@@ -1646,20 +1734,37 @@ def phase_i16_path(run, dev):
     # the resident run's records of the same reads: one or more per read
     want = want[:next((k for k, l in enumerate(want)
                        if l.startswith(f"se{n_reads}_")), len(want))]
-    launches = {}
-    for kernel, fn in (
-            ("extend_fused_i16", resident.make_fused_idx_backend(
-                params, ref.pac, dev, compute_dtype=torch.int16)),
-            ("extend_t_i16", native_driver.make_raw_t_backend(
-                params, dev, compute_dtype=torch.int16))):
-        extend_cuda.reset_launches()
-        t0 = time.time()
-        got = "".join(pipe.align_chunk_text(
-            [r.seq.astype(np.int64) for r in chunk], fn,
-            names=[r.name for r in chunk],
-            quals=[r.qual for r in chunk])[0] for chunk in chunks)
-        secs = time.time() - t0
-        counts = dict(extend_cuda.launches)
+    launches, timing = {}, {}
+    for kernel, wrapper, make in (
+            ("extend_fused_i16", "extend_batch_raw_fused",
+             lambda: resident.make_fused_idx_backend(
+                 params, ref.pac, dev, compute_dtype=torch.int16)),
+            ("extend_t_i16", "extend_batch_raw_t",
+             lambda: native_driver.make_raw_t_backend(
+                 params, dev, compute_dtype=torch.int16))):
+        # the widest launch's inputs, kept for timing the kernel at a shape
+        # the path gives it
+        orig, kept = getattr(extend_cuda, wrapper), []
+
+        def keep(*args, _orig=orig, _kept=kept, **kw):
+            if not _kept or args[0].shape[1] > _kept[0][0].shape[1]:
+                _kept[:] = [[x.clone() if torch.is_tensor(x) else x
+                             for x in args]]
+            return _orig(*args, **kw)
+
+        setattr(extend_cuda, wrapper, keep)
+        try:
+            fn = make()
+            extend_cuda.reset_launches()
+            t0 = time.time()
+            got = "".join(pipe.align_chunk_text(
+                [r.seq.astype(np.int64) for r in chunk], fn,
+                names=[r.name for r in chunk],
+                quals=[r.qual for r in chunk])[0] for chunk in chunks)
+            secs = time.time() - t0
+            counts = dict(extend_cuda.launches)
+        finally:
+            setattr(extend_cuda, wrapper, orig)
         got = got.splitlines(keepends=True)
         if got != want:
             diff = next((k for k, (x, y) in enumerate(zip(got, want))
@@ -1677,7 +1782,41 @@ def phase_i16_path(run, dev):
             f"the resident run's; {kernel} launches {counts[kernel]} == "
             f"dispatches {fn.dispatches}, no other kernel ({secs:.1f}s, one "
             f"chunk at a time)")
-    return launches["extend_fused_i16"], launches["extend_t_i16"]
+        timing[kernel] = time_path_batch(kernel, orig, kept[0])
+    return launches, timing
+
+
+def time_path_batch(kernel, wrapper, args):
+    """The 16-bit kernel and the 32-bit one on the inputs of the widest
+    launch that the 16-bit path made (the same lanes, windows and table
+    row as its counted launches), as time_kernels times them; returns the
+    16-bit kernel's entries under path_* keys for the `kernels` line."""
+    import torch
+
+    from bwamem_tpu_torch.ops import extend_torch
+
+    *tensors, prm = args
+    plain = (extend_torch.extend_fused if kernel.startswith("extend_fused")
+             else extend_torch.extend_t)
+    want = plain(*tensors, prm, compute_dtype=torch.int16)
+    if not torch.equal(wrapper(*tensors, prm, compute_dtype=torch.int16),
+                       want):
+        fail(f"{kernel} != plain 16-bit on the 16-bit path's widest launch")
+    cells = [0]
+    plain(*tensors, prm, cells=cells)
+    windows = tensors[:-2]
+    shape = (f"B={windows[0].shape[1]}, windows "
+             f"{tuple(w.shape[0] for w in windows)}")
+    _, t16 = time_kernels(
+        f"{kernel[:-4]} on the 16-bit path's widest launch ({shape})",
+        lambda: wrapper(*tensors, prm),
+        lambda: wrapper(*tensors, prm, compute_dtype=torch.int16),
+        lambda: plain(*tensors, prm),
+        lambda: plain(*tensors, prm, compute_dtype=torch.int16),
+        cells[0], tensors[:-1], want.numel())
+    return {"path_shape": shape, "path_ms": t16["ms"],
+            "path_plain_ms": t16["plain_ms"],
+            "path_bound_ms": t16["bound_ms"]}
 
 
 def simulate_device_pairs(tmp, fa, n):
@@ -2181,6 +2320,11 @@ def main() -> int:
 
     from bwamem_tpu_torch.ops import _build
 
+    # built here from the checkout's sources, never a library cached by an
+    # earlier run: ptxas's registers, stack and spills come with the build
+    for name in glob.glob(os.path.join(_build.BUILD_DIR,
+                                       "libbwt_kernels_*.so")):
+        os.remove(name)
     kl = _build.load()
     ptxas = ptxas_summary(kl.log)
     log(f"CUDA kernels built in {kl.build_seconds:.1f}s -> "
@@ -2188,9 +2332,18 @@ def main() -> int:
     log("SMEM kernels, a warp per read (registers, stack, spills): "
         + "; ".join(e for e in ptxas.split("; ")
                     if e.startswith(SMEM_KERNELS)))
+    packed = [e for e in ptxas.split("; ") if ",s>" in e]
+    log("16-bit pass instantiations (registers, stack, spills): "
+        + "; ".join(packed))
+    if not packed:
+        fail("no 16-bit pass instantiation in the build log")
+    if any("SPILLS" in e or (" B stack" in e and not e.endswith(" 0 B stack"))
+           for e in packed):
+        fail("a 16-bit pass instantiation spills or uses stack")
 
     timing, timing_i16 = phase_kernel(dev)
     timing_t, timing_t_i16 = phase_kernel_t(dev)
+    phase_kernel_i16_rows(dev)
     timing_seed, seed_gate = phase_seed_kernels(dev)
     timing_sh, sh_launches = phase_seed_sharded(dev, seed_gate)
     timing_sw = phase_sw_kernels(dev)
@@ -2210,7 +2363,7 @@ def main() -> int:
             tmp, run, "ship_ref", "--ship-ref", "extend_fused",
             ("extend_fused",))
         _, rates_py = phase_python_host(tmp, run)
-        launches_i16, launches_t_i16 = phase_i16_path(run, dev)
+        launches_i16, path_i16 = phase_i16_path(run, dev)
         dev_pe, sw_launches = phase_pe_device(tmp, run)
         seed_launches, rates_seed = phase_device_seed(tmp, run, rates)
         phase_device_functions(dev)
@@ -2236,10 +2389,12 @@ def main() -> int:
          "launches": launches_t, **timing_t},
         {"name": "extend_fused_i16", "route": "cuda", "source": fused_src,
          "replaces": "bwamem_tpu/ops/extend_pallas.py:432",
-         "launches": launches_i16, **timing_i16},
+         "launches": launches_i16["extend_fused_i16"], **timing_i16,
+         **path_i16["extend_fused_i16"]},
         {"name": "extend_t_i16", "route": "cuda", "source": t_src,
          "replaces": "bwamem_tpu/ops/extend_pallas.py:383",
-         "launches": launches_t_i16, **timing_t_i16}]
+         "launches": launches_i16["extend_t_i16"], **timing_t_i16,
+         **path_i16["extend_t_i16"]}]
         + [{"name": name, "route": "cuda",
             "source": "bwamem_tpu_torch/csrc/fm_seed.cu",
             "replaces": f"bwamem_tpu/ops/smem_jax.py:{line}",

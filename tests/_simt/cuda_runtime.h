@@ -26,6 +26,20 @@
 
 enum { cudaErrorInvalidValue = 1 };
 
+// The launchers' queries of the card: declared (for the headers' host
+// helpers), never called by the emulators.
+enum cudaDeviceAttr {
+  cudaDevAttrMultiProcessorCount,
+  cudaDevAttrMaxSharedMemoryPerMultiprocessor
+};
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+int cudaGetDevice(int*);
+int cudaDeviceGetAttribute(int*, cudaDeviceAttr, int);
+template <class F>
+int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int*, F, int, size_t);
+template <class F>
+int cudaFuncSetAttribute(F, cudaFuncAttribute, int);
+
 struct SimtIdx {
   unsigned x;
 };
@@ -134,6 +148,13 @@ inline unsigned __viaddmax_s16x2_relu(unsigned a, unsigned b, unsigned c) {
         std::max(simt::wrap_add(simt::half(a, k), simt::half(b, k)),
                  simt::half(c, k)),
         0);
+  });
+}
+
+inline unsigned __viaddmin_s16x2(unsigned a, unsigned b, unsigned c) {
+  return simt::per_half([&](int k) {
+    return std::min(simt::wrap_add(simt::half(a, k), simt::half(b, k)),
+                    simt::half(c, k));
   });
 }
 

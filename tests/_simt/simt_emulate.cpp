@@ -6,18 +6,22 @@
 //       -o libsimt.so tests/_simt/simt_emulate.cpp
 //
 // One alignment at a time, the G threads of its group run as fibers
-// (simt_fibers.h).  Results must equal the plain PyTorch version's on every
-// row: tests/test_torch_simt.py.
+// (simt_fibers.h).  Results must equal the plain PyTorch version's on
+// every row: tests/test_torch_simt.py and tests/test_torch_simt16.py.
 
 #include "band_pass.cuh"
 #include "simt_fibers.h"
 
 namespace {
 
+// G * 1000 + C of the last launch the dispatch chose
+int last_shape = 0;
+
 // Every alignment of a launch, group by group, with the block's shared
 // memory and the indices a real launch would give each thread.
 template <int G, int C, class Cell, class Body>
 int run_launch(int64_t B, int qmax, Body body) {
+  last_shape = G * 1000 + C;
   unsigned blocks;
   int ncol;
   size_t smem_bytes;
@@ -55,11 +59,10 @@ struct EmuT {
   int* out;
   template <int G, int C>
   int run() const {
-    constexpr int kC = strip_columns<C, Cell>();
     const EmuT& s = *this;
-    return run_launch<G, kC, Cell>(
+    return run_launch<G, C, Cell>(
         B, qmax, [s](int ncol, unsigned char* smem) {
-          extend_t_body<G, kC, Cell>(s.q, s.qmax, s.t, s.tmax, s.scal, s.B,
+          extend_t_body<G, C, Cell>(s.q, s.qmax, s.t, s.tmax, s.scal, s.B,
                                      s.p, s.out, ncol, smem);
         });
   }
@@ -75,11 +78,10 @@ struct EmuFused {
   int* out;
   template <int G, int C>
   int run() const {
-    constexpr int kC = strip_columns<C, Cell>();
     const EmuFused& s = *this;
-    return run_launch<G, kC, Cell>(
+    return run_launch<G, C, Cell>(
         B, QL > QR ? QL : QR, [s](int ncol, unsigned char* smem) {
-          extend_fused_body<G, kC, Cell>(s.ql, s.QL, s.tl, s.TL, s.qr, s.QR,
+          extend_fused_body<G, C, Cell>(s.ql, s.QL, s.tl, s.TL, s.qr, s.QR,
                                          s.tr, s.TR, s.scal, s.B, s.p, s.out,
                                          ncol, smem);
         });
@@ -94,7 +96,7 @@ int emu_t(const void* q, int qmax, const void* t, int tmax, const void* scal,
                      static_cast<const int8_t*>(t), tmax,
                      static_cast<const int32_t*>(scal), (int64_t)B, p,
                      static_cast<int*>(out)};
-  return dispatch_shape(qmax, l);
+  return dispatch_cells<Cell>(qmax, l);
 }
 
 template <class Cell>
@@ -109,12 +111,15 @@ int emu_fused(const void* ql, int QL, const void* tl, int TL, const void* qr,
                          QL, TL, QR, TR,
                          static_cast<const int32_t*>(scal), (int64_t)B, p,
                          static_cast<int*>(out)};
-  return dispatch_shape(QL > QR ? QL : QR, l);
+  return dispatch_cells<Cell>(QL > QR ? QL : QR, l);
 }
 
 }  // namespace
 
 extern "C" {
+
+// G * 1000 + C (C = 0: the shared-memory row) of the last launch.
+int emu_last_shape() { return last_shape; }
 
 // The launchers of extend_t.cu and extend_fused.cu without a stream: the
 // same arguments over host memory, the same shape dispatch, 32-bit cells

@@ -1,7 +1,9 @@
 """Correctness gate inputs for the extension kernels: seeded random
 batches that reach every branch of the fused and the per-phase kernel, a
 batch of hard cases built for the cooperating-threads pass (strip edges,
-long gaps, ties, trims), and the check of one pass's fields against the
+long gaps, ties, trims), batches whose band edges cross every pair
+boundary of a packed 16-bit strip, the rows of the 16-bit launch table,
+and the check of one pass's fields against the
 scalar bwa-0.7.8 oracle (the port's own numpy `ksw_extend_core`).  For
 the seeding kernels: a contig made to overflow their slots and a read
 batch over it.  For the mate-rescue and CIGAR kernels: batches of
@@ -235,6 +237,147 @@ def hard_fused_batch(seed, qmax, tmax=None, *, blk_l=128):
                       _row_bounds(scal[5], scal[6], blk_l)], 1)
     return (ql, tl, np.ascontiguousarray(qr), np.ascontiguousarray(tr),
             scal, tmax2)
+
+
+def edge_t_batch(seed, qmax, C, B=128):
+    """Lanes whose band edges cross every pair boundary and the half-strip
+    seam of a strip of C columns (C / 2 pairs) as the rows go by: query
+    lengths around the pair count, the strip and the window, odd ones
+    among them; bands 0..C + 1 wide, most narrower than a strip; targets
+    that follow the query (2% substitutions) so the rows run on."""
+    rng = np.random.default_rng(seed)
+    half = max(C // 2, 1)
+    qlens = sorted({v for v in (1, 2, 3, half - 1, half, half + 1, C - 1, C,
+                                C + 1, 2 * C - 1, 2 * C + 1, 3 * half,
+                                qmax // 2 | 1, qmax - 2, qmax - 1, qmax)
+                    if 1 <= v <= qmax})
+    tmax = qmax + 24
+    q = rng.integers(0, 4, (qmax, B)).astype(np.int8)
+    t = rng.integers(0, 4, (tmax, B)).astype(np.int8)
+    t[:qmax] = np.where(rng.random((qmax, B)) < 0.02,
+                        rng.integers(0, 4, (qmax, B)), q)
+    scal = np.zeros((8, B), np.int32)
+    scal[0] = np.array(qlens)[np.arange(B) % len(qlens)]
+    scal[1] = np.minimum(scal[0] + rng.integers(0, 25, B), tmax)
+    scal[2] = np.array([0, 1, 2, half - 1, half, half + 1, C, C + 1]
+                       )[(np.arange(B) // len(qlens)) % 8].clip(0)
+    scal[3] = rng.integers(1, 60, B)
+    return q, t, scal, np.array([tmax], np.int32)
+
+
+def edge_fused_batch(seed, qmax, C, B=128):
+    """A fused batch of two edge_t_batch sides (right window qmax - 1, so
+    the longer window sets the shape), retry bands twice the first."""
+    ql, tl, sl, _ = edge_t_batch(seed, qmax, C, B)
+    qr, tr, sr, _ = edge_t_batch(seed + 1, max(qmax - 1, 1), C, B)
+    scal = np.zeros((16, B), np.int32)
+    scal[0], scal[1], scal[2], scal[3] = sl[0], sl[1], sl[2], sl[3]
+    scal[4], scal[5], scal[6] = 2 * sl[2], sr[0], sr[1]
+    scal[7], scal[8], scal[9] = sl[2], 2 * sl[2], sl[2]
+    tmax2 = np.array([[tl.shape[0], tr.shape[0]]], np.int32)
+    return ql, tl, qr, tr, scal, tmax2
+
+
+def top_of_range_t_batch(seed, qmax, B=128):
+    """A per-phase batch whose scores reach 2^14 - 1, the top of the 16-bit
+    cells' exact range, in a window of qmax columns, and its scoring block:
+    targets that repeat the query, so H climbs a every row, with a match
+    score a = min(floor((2^14 - 1) / (qmax + 1)), 127) and h0 = 2^14 - 1 -
+    a*qmax (so small windows start high instead of clipping a); odd lanes
+    take shorter queries.  Gap penalties as large as the range allows."""
+    rng = np.random.default_rng(seed)
+    top = (1 << 14) - 1
+    a = min(top // (qmax + 1), 127)
+    q = rng.integers(0, 4, (qmax, B)).astype(np.int8)
+    t = np.concatenate([q, rng.integers(0, 4, (32, B)).astype(np.int8)])
+    scal = np.zeros((8, B), np.int32)
+    scal[0] = qmax
+    scal[0][1::2] = rng.integers(1, qmax + 1, B // 2)
+    scal[1], scal[2], scal[3] = qmax + 32, qmax + 1, top - a * qmax
+    prm = np.array([a, a, 60, 9, 70, 11, 100, 0], np.int32)
+    return (q, t, scal, np.array([qmax + 32], np.int32)), prm
+
+
+# Lanes on which the 16-bit pass's trim must read column endc where it
+# lies past the last strip (endc == qlen == G * C, the whole window of a
+# row of BWT_LAUNCH_TABLE16, or a multiple of 64 columns in the
+# shared-memory row): H(i, endc-1) is the only non-zero value at
+# the row's end and the next row's F reaches column qlen - 1, so gscore and
+# max_ie depend on it.  It takes a match score a >= 2.  Found by a search
+# over random lanes against a copy of csrc/band_pass16.cuh without that
+# read.  By query length: (a, b, o_del, e_del, o_ins, e_ins, zdrop), band,
+# h0, query, target.
+TRIM_PAST_ROW = {
+    32: ((2, 6, 3, 2, 7, 1, 100), 37, 38,
+         "AGATAAAAGAGGTACATGTAGCGTACCTAGGC",
+         "TTTAAAATTGTCGCAGTCTGCAGCGTACTTATCG"),
+    64: ((3, 6, 5, 2, 8, 1, 0), 72, 68,
+         "TACTAGGGGTCACACGCAGGTAACGGACCATCTTACCTTAGGATTAAACCGCCGACCAACAATG",
+         "GGCGCTTTCGGGGTTCAGAAATCAGATTCGTCTCCCGTTACTGTACATGTTCTAACTAGCCTGAA"
+         "TGC"),
+    128: ((2, 7, 1, 2, 7, 1, 0), 136, 133,
+          "CTGTAACAATTGATGCGCCGGCGGCACGGCTTAGAACGGCTATCTTAGGGAAGTAACCCAGGAAAA"
+          "GGATATGAATGCGTCTAGCGGGACCCCCCGAGAACCTTGCCGGTTGTAGTAACAAGGGTGAC",
+          "GCCCACTA"),
+    192: ((3, 6, 6, 2, 8, 1, 100), 200, 200,
+          "CTAGCACCTACGTAACGTCGAACCCCATAGTCGCTTAAGCTGGTTTTGCTGGCTTATTATCCGCGT"
+          "GACTGCCGCATGGAAATGCGTGTAGAAAAGTACAGAGTGAAGTTATTTGCTTGATCCGTATCCTGT"
+          "CGGTCTTTAGCATAGTAGAGGCTTTTTGCCCCAGATCGTTCGACAGAGGCTCTCGCCCCA",
+          "AAG"),
+    256: ((3, 7, 6, 2, 8, 1, 0), 264, 260,
+          "AATCTACAACCGGGGGTATAAATTCAGAATTTCGATTCCATACTAGAGGTAGTATAAAGACGGTAG"
+          "TATGGGCAGGTAGGTGCTCCGATACGATAAGATTAATGCGTAGAACAATGGGCCCGGTGGATCCCT"
+          "TTTTTATGTTCAGAATCAGAAACAGAAGATTCCAAGTCGCTCGGACTCGGCTACTGCCTTCGCGAC"
+          "TCCTTAAACAGTGATCACAAGAAGATGAGTGAACATCTGTGGCTGAGGCAATTCTACG",
+          "AGCA"),
+    320: ((3, 6, 2, 2, 8, 1, 100), 328, 324,
+          "AGCAAGACGAATATTCATGAACGATTCCCTTTTCGGTAGTTTTCATGGCATATATTATCCACTCAG"
+          "CTCACCCTCCCATCTCTATGCAATCTGACACGTTCCTGGTCTCTGCTTTCTCCGAAAACAGGTCGA"
+          "ATTCACGAGCGGGCTTCGTTTGCTACTGGGCTCGGCAGGCGTTATATTTAACAGACCATAGGTTCC"
+          "TCTAAAAAGTGTAGCGGCAGGTCTATGCCGAACATCTTCGCTAGCCTTCAGCTTGGAGTTGTTGCA"
+          "ATACCAACCGATTGTCGGACCAGCGGGACGCTTAAAACGGGGACTGATGCTCGCCT",
+          "ATCG"),
+}
+
+
+def trim_past_row_t_batch(qlen, B=128):
+    """TRIM_PAST_ROW[qlen] as a per-phase batch of B copies of the lane in
+    a window of qlen columns (every other copy with the band one wider,
+    which changes nothing), and its scoring block."""
+    pen, w, h0, query, target = TRIM_PAST_ROW[qlen]
+    code = {c: k for k, c in enumerate("ACGT")}
+    q = np.array([code[c] for c in query], np.int8)
+    t = np.array([code[c] for c in target], np.int8)
+    scal = np.zeros((8, B), np.int32)
+    scal[0], scal[1], scal[2], scal[3] = qlen, len(t), w, h0
+    scal[2][1::2] += 1
+    prm = np.array(list(pen) + [0], np.int32)
+    return (np.ascontiguousarray(np.repeat(q[:, None], B, 1)),
+            np.ascontiguousarray(np.repeat(t[:, None], B, 1)), scal,
+            np.array([len(t)], np.int32)), prm
+
+
+def launch_table16(path):
+    """The rows (largest query window, G, C) of BWT_LAUNCH_TABLE16 in the
+    launch_table.cuh at `path`, in order."""
+    import re
+
+    with open(path) as f:
+        text = f.read()
+    body = re.search(r"#define BWT_LAUNCH_TABLE16\(ROW\)((?:[^\n]*\\\n)*"
+                     r"[^\n]*)", text).group(1)
+    return [tuple(int(x) for x in m.groups()) for m in re.finditer(
+        r"ROW\((\d+),\s*(\d+),\s*(\d+)\)", body)]
+
+
+def tile_lanes(batch, B):
+    """`batch` (an extension batch: its arrays, then its row bounds) with
+    its lanes repeated to at least B lanes; the row bounds are kept as they
+    are (no kernel reads them)."""
+    *arrays, bounds = batch
+    reps = max(1, -(-B // arrays[0].shape[1]))
+    return tuple(np.ascontiguousarray(np.tile(x, (1, reps)))
+                 for x in arrays) + (bounds,)
 
 
 def capacity_t_batch(seed=9):

@@ -12,6 +12,8 @@ in interpret mode, to the port's own 32-bit plain version and to the
 scalar oracle, inside the range the wrapper states, and the wrapper's
 refusals outside it."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -429,6 +431,63 @@ def test_i16_edge_of_range_is_exact():
     assert want[0].max() == (1 << 14) - 1
     _all_equal(_plain_t(batch, prm, torch.int16), want,
                _pallas_t(batch, prm, jnp.int16))
+
+
+# one query window per row of the 16-bit cells' launch table (and the
+# shared-memory row above it), with the row's strip of C columns: the
+# windows and band edges that the 16-bit kernels' tests (test_torch_simt16,
+# chip_smoke.py) hold to this plain version, here held to the JAX package
+_TABLE16 = gate.launch_table16(os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "bwamem_tpu_torch", "csrc", "launch_table.cuh"))
+_WINDOWS16 = sorted({(q, c) for q, _, c in _TABLE16}
+                    | {(_TABLE16[-1][0] + 1,
+                        2 * -(-(_TABLE16[-1][0] + 1) // 64))})
+
+
+@pytest.mark.parametrize("qmax,C", _WINDOWS16,
+                         ids=[f"q{q}-C{c}" for q, c in _WINDOWS16])
+def test_i16_band_edges_match_pallas_i16_and_i32(qmax, C):
+    """The band-edge batches (tests/_torch_gate.edge_t_batch,
+    edge_fused_batch: edges on every pair boundary and the half-strip seam
+    of a C-column strip, odd query lengths, bands narrower than a strip):
+    plain 16-bit == the Pallas kernels at jnp.int16 (interpret mode) ==
+    the 32-bit plain version, every row and lane."""
+    for zdrop in (100, 0):
+        batch = gate.edge_t_batch(qmax + zdrop, qmax, C, BLK)
+        prm = _prm(zdrop=zdrop)
+        _all_equal(_plain_t(batch, prm, torch.int16),
+                   _pallas_t(batch, prm, jnp.int16), _plain_t(batch, prm))
+    batch = gate.edge_fused_batch(qmax, qmax, C, BLK)
+    prm = _prm(zdrop=0)
+    _all_equal(_plain(batch, prm, torch.int16),
+               _pallas(batch, prm, jnp.int16), _plain(batch, prm))
+
+
+@pytest.mark.parametrize("qmax", sorted({q for q, _ in _WINDOWS16}))
+def test_i16_top_of_range_matches_pallas_i16_and_i32(qmax):
+    """Scores at 2^14 - 1 in every window of the 16-bit table
+    (tests/_torch_gate.top_of_range_t_batch): plain 16-bit == the Pallas
+    kernel at jnp.int16 == the 32-bit plain version."""
+    batch, prm = gate.top_of_range_t_batch(qmax, qmax, BLK)
+    extend_cuda.check_i16_range(prm, qmax, batch[1].shape[0])
+    want = _plain_t(batch, prm)
+    assert want[0].max() == (1 << 14) - 1
+    _all_equal(_plain_t(batch, prm, torch.int16), want,
+               _pallas_t(batch, prm, jnp.int16))
+
+
+@pytest.mark.parametrize("qlen", sorted(gate.TRIM_PAST_ROW))
+def test_i16_trim_past_the_row_matches_pallas_and_oracle(qlen):
+    """The lanes whose trim reads column endc past the 16-bit pass's last
+    strip (tests/_torch_gate.TRIM_PAST_ROW): plain 16-bit == the Pallas
+    kernel at jnp.int16 == the 32-bit plain version, and fields 0-5 ==
+    ksw_extend_core."""
+    batch, prm = gate.trim_past_row_t_batch(qlen, BLK)
+    got = _plain_t(batch, prm, torch.int16)
+    _all_equal(got, _pallas_t(batch, prm, jnp.int16), _plain_t(batch, prm))
+    n, bad = _oracle_mismatches(got, batch[0], batch[1], batch[2], prm)
+    assert n == BLK and bad == [], bad[:3]
 
 
 @pytest.mark.parametrize("prm,qmax,tmax,why", [

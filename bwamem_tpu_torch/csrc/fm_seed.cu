@@ -66,7 +66,9 @@ using fmseed::ShardedOcc;
 
 constexpr int kWarps = 4;                  // reads a block (SMEM kernels)
 constexpr int kWarpBlock = 32 * kWarps;
-constexpr int kRowBlock = 64;              // rows a block (SA, rank4)
+constexpr int kRowBlock = 64;              // rows a block (SA)
+constexpr int kRank4Block = 256;           // threads a block (rank4)
+constexpr int kRank4Rows = 4;              // rows a thread (rank4)
 
 // This thread's read and lane: warp w of block k runs read k * kWarps + w.
 __device__ __forceinline__ int64_t warp_read() {
@@ -165,12 +167,33 @@ __global__ void __launch_bounds__(kRowBlock)
   out[k] = fmseed::sa_value_dev(ix, ssa, n_ssa, sa_intv, rows[k], max_it);
 }
 
-__global__ void __launch_bounds__(kRowBlock)
+// rank4 of kRank4Rows rows a thread (rows t, t + kRank4Block, ... of the
+// block's span, so a warp's reads and writes of each are contiguous): the
+// row indices loaded, then every row's three 16-byte block rows, then the
+// counts, two 16-byte stores a row.
+__global__ void __launch_bounds__(kRank4Block)
     rank4_kernel(ShardedOcc ix, const int64_t* __restrict__ rows, int64_t n,
                  int64_t* __restrict__ out) {
-  const int64_t k = thread_index();
-  if (k >= n) return;
-  fmseed::rank4(ix, rows[k], out + 4 * k);
+  const int64_t first =
+      (int64_t)blockIdx.x * (kRank4Block * kRank4Rows) + threadIdx.x;
+  int64_t row[kRank4Rows];
+  fmseed::BlockRows b[kRank4Rows];
+  for (int k = 0; k < kRank4Rows; ++k) {
+    const int64_t at = first + (int64_t)k * kRank4Block;
+    row[k] = at < n ? rows[at] : 0;
+  }
+  for (int k = 0; k < kRank4Rows; ++k)
+    if (first + (int64_t)k * kRank4Block < n)
+      b[k] = fmseed::load_rows(fmseed::block_of(ix, row[k] >> 6));
+  for (int k = 0; k < kRank4Rows; ++k) {
+    const int64_t at = first + (int64_t)k * kRank4Block;
+    if (at >= n) continue;
+    int64_t c[4];
+    fmseed::rank4_rows(b[k], (int)(row[k] & 63), c);
+    longlong2* dst = reinterpret_cast<longlong2*>(out + 4 * at);
+    dst[0] = longlong2{c[0], c[1]};
+    dst[1] = longlong2{c[2], c[3]};
+  }
 }
 
 Occ make_occ(const void* occ, const void* pk, const void* va, const void* C,
@@ -249,7 +272,8 @@ int bwt_sa(const void* occ, const void* pk, const void* va, const void* C,
 // in [0, n_rows]; out (n, 4) int64.
 int bwt_rank4_sh(const ShardedOcc* tab, const void* rows, long long n,
                  void* out, void* stream) {
-  FM_LAUNCH_ROWS(rank4_kernel, (int64_t)n, stream, *tab,
+  FM_LAUNCH(rank4_kernel, (int64_t)n, kRank4Block * kRank4Rows,
+            kRank4Block, stream, *tab,
             static_cast<const int64_t*>(rows), (int64_t)n,
             static_cast<int64_t*>(out));
 }

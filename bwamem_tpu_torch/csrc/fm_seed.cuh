@@ -103,9 +103,13 @@ __device__ __forceinline__ Block block_of(const Occ& ix, int64_t blk) {
 
 // The owning shard and the local row: the GPU counterpart of the JAX
 // module's masked gather and psum (_rank4_partial, smem_sharded.py:186).
+// The shard is the number of later shards whose first block blk reaches:
+// compares, not a 64-bit division.
 __device__ __forceinline__ Block block_of(const ShardedOcc& ix, int64_t blk) {
   const int64_t g = blk - ix.blk_origin;
-  const int64_t s = g / ix.nb_loc;
+  int s = 0;
+  for (int k = 1; k < kMaxShards; ++k)
+    s += k < ix.n_shards && g >= k * ix.nb_loc;
   const int64_t l = (g - s * ix.nb_loc) * 4;
   return Block{ix.occ[s] + l, ix.pk[s] + l, ix.va[s] + l};
 }
@@ -122,24 +126,33 @@ __device__ __forceinline__ int64_t sample_at(const ShardedOcc& ix,
   return ix.ssa[s][k - s * ix.ns_loc];
 }
 
-// Counts of bases 0..3 in bwt[0:i).
-template <class Tab>
-__device__ __forceinline__ void rank4(const Tab& ix, int64_t i,
-                                      int64_t out[4]) {
-  const int64_t blk = i >> 6;
-  const int r = (int)(i & 63);
-  const Block b = block_of(ix, blk);
-  const uint32_t* w = b.pk;
-  const uint32_t* v = b.va;
-  const int32_t* base = b.occ;
+// The three rows of a block, loaded whole (each row is 4 words, 16-byte
+// aligned).
+struct BlockRows {
+  int4 occ;
+  uint4 pk, va;
+};
+
+__device__ __forceinline__ BlockRows load_rows(const Block& b) {
+  return BlockRows{*reinterpret_cast<const int4*>(b.occ),
+                   *reinterpret_cast<const uint4*>(b.pk),
+                   *reinterpret_cast<const uint4*>(b.va)};
+}
+
+// Counts of bases 0..3 in bwt[0:i) from the rows of i's block, r = i & 63.
+__device__ __forceinline__ void rank4_rows(const BlockRows& b, int r,
+                                           int64_t out[4]) {
+  const uint32_t w[4] = {b.pk.x, b.pk.y, b.pk.z, b.pk.w};
+  const uint32_t v[4] = {b.va.x, b.va.y, b.va.z, b.va.w};
+  const int32_t base[4] = {b.occ.x, b.occ.y, b.occ.z, b.occ.w};
   uint32_t wk[4], vk[4];
   for (int k = 0; k < 4; ++k) {
     const int nsym = r - 16 * k;
     const uint32_t pmask = nsym >= 16 ? 0xFFFFFFFFu
                            : nsym <= 0 ? 0u
                                        : ((1u << (2 * nsym)) - 1u);
-    wk[k] = pmask ? w[k] : 0u;
-    vk[k] = pmask ? (v[k] & pmask) : 0u;
+    wk[k] = w[k] & pmask;
+    vk[k] = v[k] & pmask;
   }
   for (int c = 0; c < 4; ++c) {
     const uint32_t pat = 0x55555555u * (uint32_t)c;
@@ -150,6 +163,13 @@ __device__ __forceinline__ void rank4(const Tab& ix, int64_t i,
     }
     out[c] = cnt;
   }
+}
+
+// Counts of bases 0..3 in bwt[0:i).
+template <class Tab>
+__device__ __forceinline__ void rank4(const Tab& ix, int64_t i,
+                                      int64_t out[4]) {
+  rank4_rows(load_rows(block_of(ix, i >> 6)), (int)(i & 63), out);
 }
 
 // The four backward extensions of (x0, x1, s) from the counts tk at x0

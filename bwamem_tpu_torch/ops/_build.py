@@ -106,15 +106,16 @@ def bind_sw(lib: ctypes.CDLL) -> None:
     """The launchers of csrc/local_sw.cu and csrc/global_sw.cu, and the
     functions that give the bytes of device scratch each needs."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for fn in (lib.bwt_local_align6_scratch, lib.bwt_global_cigar_scratch):
-        fn.restype = i64
-        fn.argtypes = [i32, i32, i64]
+    lib.bwt_local_align6_scratch.restype = i64
+    lib.bwt_local_align6_scratch.argtypes = [i32, i32, i64]
+    lib.bwt_global_cigar_scratch.restype = i64
+    lib.bwt_global_cigar_scratch.argtypes = [i32, i32, i32, i64]
     lib.bwt_local_align6.restype = i32
     lib.bwt_local_align6.argtypes = [vp, i32, vp, vp, i32, vp, i64, vp, vp,
                                      vp, vp, vp]
     lib.bwt_global_cigar.restype = i32
-    lib.bwt_global_cigar.argtypes = [vp, i32, vp, vp, i32, vp, vp, i64, vp,
-                                     vp, vp, vp, vp, vp]
+    lib.bwt_global_cigar.argtypes = [vp, i32, vp, vp, i32, vp, vp, i64, i32,
+                                     vp, vp, vp, vp, vp, vp, vp]
 
 
 def launch(dev, fn: str, *args) -> None:

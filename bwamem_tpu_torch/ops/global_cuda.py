@@ -29,12 +29,16 @@ def reset_launches() -> None:
             launches[k] = 0
 
 
-def global_batch(query, qlen, target, tlen, w, mat, pens):
+def global_batch(query, qlen, target, tlen, w, mat, pens, *, band=None):
     """Fill and traceback of every task (global_torch.global_batch:
     arguments and result as there).  On CUDA every argument must be a
-    contiguous int32 tensor on one device, pens a (4,) tensor.  Returns
-    (score (B,) int32, steps (qmax + tmax, B) int8) on the inputs'
-    device."""
+    contiguous int32 tensor on one device, pens a (4,) tensor.  `band`, a
+    host integer, is the round's widest band (global_torch.band_width of
+    the lanes, which the callers have on the host): the kernel's window is
+    sized from it; None sizes it for the whole query window (qmax), which
+    every lane fits.  Raises if a lane's band is wider than the window (the
+    kernel flags it).  Returns (score (B,) int32, steps (qmax + tmax, B)
+    int8) on the inputs' device."""
     dev = cuda_device_of(query, qlen, target, tlen, w, mat, pens)
     if dev is None:
         return global_torch.global_batch(query, qlen, target, tlen, w, mat,
@@ -42,18 +46,23 @@ def global_batch(query, qlen, target, tlen, w, mat, pens):
     from bwamem_tpu_torch.ops import _build
 
     B, qmax, tmax = check_task_args(query, qlen, target, tlen, mat, pens, w)
+    band = qmax if band is None else int(band)
     score = torch.empty(B, dtype=torch.int32, device=dev)
     steps = torch.empty((qmax + tmax, B), dtype=torch.int8, device=dev)
     if B:
         lib = _build.load().lib
-        scratch = torch.empty(
-            max(int(lib.bwt_global_cigar_scratch(qmax, tmax, B)), 1),
-            dtype=torch.uint8, device=dev)
+        with torch.cuda.device(dev):   # the launch's card's shared memory
+            n = int(lib.bwt_global_cigar_scratch(qmax, tmax, band, B))
+        scratch = torch.empty(max(n, 1), dtype=torch.uint8, device=dev)
+        err = torch.zeros(1, dtype=torch.int32, device=dev)
         _build.launch(dev, "bwt_global_cigar", query.data_ptr(), qmax,
                       qlen.data_ptr(), target.data_ptr(), tmax,
-                      tlen.data_ptr(), w.data_ptr(), B, mat.data_ptr(),
-                      pens.data_ptr(), score.data_ptr(), steps.data_ptr(),
-                      scratch.data_ptr())
+                      tlen.data_ptr(), w.data_ptr(), B, band,
+                      mat.data_ptr(), pens.data_ptr(), score.data_ptr(),
+                      steps.data_ptr(), err.data_ptr(), scratch.data_ptr())
         with _count_lock:
             launches["global_cigar"] += 1
+        if err.item():
+            raise ValueError(f"bwt_global_cigar: band {band} is narrower "
+                             f"than a lane's band (global_torch.band_width)")
     return score, steps

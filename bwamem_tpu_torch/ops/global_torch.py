@@ -130,6 +130,16 @@ def global_batch(query, qlen, target, tlen, w, mat, pens):
     return score, steps
 
 
+def band_width(qlen, tlen, w, qmax: int) -> int:
+    """The widest band of a round's lanes, host arrays (B,): min(2 w' + 1,
+    qlen) with w' = max(w, |tlen - qlen|), qlen clipped to the query window
+    qmax; at least 1.  The CUDA kernel sizes its window from it."""
+    qlen, tlen, w = (np.asarray(x, np.int64) for x in (qlen, tlen, w))
+    wp = np.maximum(w, np.abs(tlen - qlen))
+    qn = np.clip(qlen, 0, qmax)
+    return max(int(np.minimum(2 * wp + 1, qn).max(initial=0)), 1)
+
+
 _WHICH2OP = np.array([M_OP, D_OP, I_OP, -1], np.int8)
 
 
@@ -180,7 +190,8 @@ def _global_batch_host(device, query, qlen, target, tlen, w, mat, pens):
 
     return global_cuda.global_batch(*(
         to_device(x, np.int32, device)
-        for x in (query, qlen, target, tlen, w, mat, pens)))
+        for x in (query, qlen, target, tlen, w, mat, pens)),
+        band=band_width(qlen, tlen, w, np.shape(query)[1]))
 
 
 def make_cigar_backend(device):

@@ -243,14 +243,17 @@ def _global_shards(devices, query, qlen, target, tlen, w, mat, pens):
     the CPU) of host arrays with the tasks split over `devices`: (score
     (B,), steps (qmax + tmax, B)) CPU tensors."""
     from bwamem_tpu_torch.ops.global_cuda import global_batch
+    from bwamem_tpu_torch.ops.global_torch import band_width
 
+    band = band_width(qlen, tlen, w, query.shape[1])
     lanes = _lanes(query.shape[0], len(devices), len(devices), "global")
     mats, pens = _on_each(devices, mat, np.int32), _on_each(devices, pens,
                                                              np.int32)
     ins = [[to_device(x[a:b], np.int32, d)
             for x in (query, qlen, target, tlen, w)]
            for d, (a, b) in zip(devices, lanes)]
-    outs = [global_batch(*x, mats[d], pens[d]) for d, x in zip(devices, ins)]
+    outs = [global_batch(*x, mats[d], pens[d], band=band)
+            for d, x in zip(devices, ins)]
     return (torch.cat([s.cpu() for s, _ in outs]),
             torch.cat([st.cpu() for _, st in outs], 1))
 
@@ -356,7 +359,7 @@ def make_sharded_cigar_idx_backend(devices, pac=None, text_dev=None):
     each shard runs resident.cigar_idx_local, the run-length encoding
     stays on the host.  `text_dev` as in make_sharded_rescue_idx_backend;
     Bp a multiple of n_dev."""
-    from bwamem_tpu_torch.ops.global_torch import pack_cigar_round
+    from bwamem_tpu_torch.ops.global_torch import band_width, pack_cigar_round
     from bwamem_tpu_torch.pipeline.resident import cigar_idx_local
 
     devices = device_list(devices)
@@ -371,8 +374,9 @@ def make_sharded_cigar_idx_backend(devices, pac=None, text_dev=None):
         pens = _on_each(devices, [o_del, e_del, o_ins, e_ins], np.int32)
         ins = [to_device(meta[:, a:b], np.int32, d)
                for d, (a, b) in zip(devices, lanes)]
+        band = band_width(meta[0], meta[1], meta[2], qmax)
         outs = [cigar_idx_local(reads[d], m, mats[d], pens[d], texts[d],
-                                qmax=qmax, tmax=tmax)
+                                qmax=qmax, tmax=tmax, band=band)
                 for d, m in zip(devices, ins)]
         return pack_cigar_round(torch.cat([s.cpu() for s, _ in outs]),
                                 torch.cat([st.cpu() for _, st in outs], 1))

@@ -217,7 +217,8 @@ def make_rescue_idx_backend(pac, device, *, text_dev=None):
     return rescue_idx
 
 
-def cigar_idx_local(reads_nib, meta, mat, pens, text, *, qmax, tmax):
+def cigar_idx_local(reads_nib, meta, mat, pens, text, *, qmax, tmax,
+                    band=None):
     """One resident-reference CIGAR round: gather the query segment from
     the read matrix and the reference segment from the text (both walked
     backwards for reverse-strand regions, as the host's gen_cigar_setup
@@ -225,7 +226,8 @@ def cigar_idx_local(reads_nib, meta, mat, pens, text, *, qmax, tmax):
     (ops/global_cuda.global_batch: the kernel on a card, the plain version
     on the CPU).  meta (8, B) int32 rows: [qlen,
     tlen, w, read index, qcol0, is_rev, t_lo20, t_hi]; all tensors on one
-    device.  Returns (score (B,), steps (qmax + tmax, B))."""
+    device; `band` the round's widest band (global_cuda.global_batch).
+    Returns (score (B,), steps (qmax + tmax, B))."""
     from bwamem_tpu_torch.ops.global_cuda import global_batch
 
     rev = meta[5] == 1
@@ -238,7 +240,7 @@ def cigar_idx_local(reads_nib, meta, mat, pens, text, *, qmax, tmax):
     A = text_gather_window(text, lo, meta[7], tmax, 1)    # (tmax, B)
     t = torch.where(rev[None, :], A.flip(0), A).t()
     return global_batch(q, meta[0], t.contiguous(), meta[1], meta[2], mat,
-                        pens)
+                        pens, band=band)
 
 
 def make_cigar_idx_backend(pac, device, *, text_dev=None):
@@ -248,7 +250,7 @@ def make_cigar_idx_backend(pac, device, *, text_dev=None):
     numpy arrays and return the round triple of
     global_torch.pack_cigar_round.  `text_dev` and `.idx` as in
     make_rescue_idx_backend."""
-    from bwamem_tpu_torch.ops.global_torch import pack_cigar_round
+    from bwamem_tpu_torch.ops.global_torch import band_width, pack_cigar_round
 
     device = torch.device(device)
     text = text_dev if text_dev is not None else make_resident_text(
@@ -260,7 +262,8 @@ def make_cigar_idx_backend(pac, device, *, text_dev=None):
             to_device(reads_nib, np.int8, device),
             *(to_device(x, np.int32, device)
               for x in (meta, mat, [o_del, e_del, o_ins, e_ins])),
-            text, qmax=qmax, tmax=tmax))
+            text, qmax=qmax, tmax=tmax,
+            band=band_width(meta[0], meta[1], meta[2], qmax)))
 
     cigar_idx.idx = True
     return cigar_idx

@@ -48,7 +48,9 @@ Phases, each of which fails the run (exit code 1, no result line):
              several with peer access; without it the factory must
              refuse), each kernel == its plain version over the same
              shards and == the unsharded kernel, every row and field,
-             timed with its bytes and dependence bounds; the path (its
+             timed with its bytes and dependence bounds (bwt_rank4_sh as
+             its bare launch, shorter than the wrapper's host time: the
+             output made once, a sleep kernel queued first); the path (its
              launch counts set to 0 just before it and read just after):
              rank4 through
              make_sharded_rank4 at a block origin of 2^26 == host rank4,
@@ -69,8 +71,19 @@ Phases, each of which fails the run (exit code 1, no result line):
              batches of tests/_torch_gate.py (an arbitrary 5x5 matrix,
              ties, N codes, padding and best-0 lanes, narrow bands) at
              those shapes, in a window for every group width of the
-             launch table and the memory row beyond it, and on lanes at
-             tmax 16384; both timed at the dev-fn shapes with their bound;
+             rescue kernel's launch table and the memory row beyond it,
+             and on lanes at tmax 16384; the CIGAR kernel also at a band
+             in every row of its launch table (global_sw.cuh) and
+             the memory row, each with its slots in shared memory and
+             (a target window too long for a block) in global scratch,
+             the placement checked, and on rounds that mix w 19 with the
+             band-doubling retries' widths; a band narrower than a
+             lane's must raise; registers, shared memory, stack and
+             spills of every CIGAR instantiation logged (a spill or
+             stack fails the run); both timed at the dev-fn shapes with
+             their bound (the CIGAR kernel's launch alone, with a
+             dependence term: its longest traceback walk times one walk
+             step, timed from two launches whose walks differ);
   5. gather  the resident-reference gathers on the GPU against the same
              gathers on the CPU at their edge cases;
   6. main    `python -m bwamem_tpu_torch index|mem` (in this process) on
@@ -111,6 +124,9 @@ Phases, each of which fails the run (exit code 1, no result line):
              with an I and some with a D; in each run bwt_local_align6
              launches == rescue_w* rows and bwt_global_cigar launches ==
              cigar_r* rows, ms a wave and a round beside the host finish;
+             the first CIGAR round the resident PE run handed the kernel
+             kept, then gated against the plain version and timed
+             (path_ms in the CIGAR kernel's entry of the `kernels` line);
  12. dev-seed all SE reads and pairs of phase 6 through `mem --backend cuda
              --device-seed`: SAM byte-identical to the host-seeded run,
              bwt_smem_all launches == chunks, bwt_smem1 == re-seed rounds,
@@ -245,9 +261,11 @@ SMEM_KERNELS = ("smem_all_kernel", "smem1_kernel")
 def ptxas_summary(log_text):
     """`nvcc -Xptxas -v` output as one entry per kernel: its name (with
     the <group, strip, cell type> template arguments: i = int32_t, s =
-    int16_t; <group, strip> for the rescue and CIGAR kernels), registers,
-    and stack and spill bytes where there are any (for the SMEM kernels
-    and the 16-bit instantiations always)."""
+    int16_t; <group, strip> for the rescue kernel, <group, strip, smem or
+    global> for the CIGAR kernel, by where its slots are), registers, and
+    stack and spill bytes where there are any (for the SMEM kernels, the
+    16-bit instantiations and the CIGAR kernel always, with the CIGAR
+    kernel's static shared memory)."""
     out, name = [], "?"
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -255,16 +273,20 @@ def ptxas_summary(log_text):
             name = re.sub(r"^_Z\w*?\d+(extend_\w+?_kernel)(?:ILi(\d+)ELi"
                           r"(\d+)E(\w)E)?.*", r"\1<\2,\3,\4>", m.group(1))
             sw = re.search(r"((?:local_align6|global_cigar)_kernel)ILi(\d+)"
-                           r"ELi(\d+)E", name)
+                           r"ELi(\d+)E(?:Lb([01])E)?", name)
             if sw:     # <group, strip>; strip 0 is the memory row
-                name = f"{sw.group(1)}<{sw.group(2)},{sw.group(3)}>"
+                name = f"{sw.group(1)}<{sw.group(2)},{sw.group(3)}" + (
+                    "" if sw.group(4) is None else
+                    ",smem" if sw.group(4) == "1" else ",global") + ">"
             seed = re.search(r"\d((?:smem_all|smem1|sa|rank4)_kernel)",
                              name)
             if seed:   # the _sh instantiations read a ShardedOcc
                 name = seed.group(1) + ("<sh>" if "ShardedOcc" in name
                                         or "rank4" in name else "")
-        # stack and spills, even 0: the SMEM kernels and the 16-bit pass
-        warp = name.startswith(SMEM_KERNELS) or name.endswith(",s>")
+        # stack and spills, even 0: the SMEM kernels, the 16-bit pass and
+        # the CIGAR kernel
+        warp = name.startswith(SMEM_KERNELS + ("global_cigar",)) \
+            or name.endswith(",s>")
         m = re.search(r"(\d+) bytes stack frame", line)
         if m and (int(m.group(1)) or warp):
             out.append(f"{name} {m.group(1)} B stack")
@@ -277,6 +299,9 @@ def ptxas_summary(log_text):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out.append(f"{name} {m.group(1)} regs")
+            m = re.search(r"(\d+) bytes smem", line)
+            if m and name.startswith("global_cigar"):
+                out.append(f"{name} {m.group(1)} B static smem")
     return "; ".join(out)
 
 
@@ -897,6 +922,34 @@ def lf_walk_reads(d, n_reads, length, rng):
     return reads, np.full(n_reads, length, np.int64)
 
 
+def rank4_bare_ms(v, rows, want):
+    """The bare bwt_rank4_sh launch over the shards of the view v at the
+    int64 rows: its output made once (== want), a sleep kernel queued
+    before the timed launches so that the host's ctypes call between them
+    does not count; mean ms of 20 launches by CUDA events."""
+    import ctypes
+
+    import torch
+
+    from bwamem_tpu_torch.ops import _build
+
+    lib = _build.load().lib
+    n = rows.shape[0]
+    out = torch.full((n, 4), -1, dtype=torch.int64, device=rows.device)
+    sh = ctypes.byref(v.tabs.shard_table())
+    stream = torch.cuda.current_stream(rows.device).cuda_stream
+
+    def launch():
+        if lib.bwt_rank4_sh(sh, rows.data_ptr(), n, out.data_ptr(),
+                            stream) != 0:
+            fail("bwt_rank4_sh launch failed")
+
+    launch()
+    if not torch.equal(out, want):
+        fail("bwt_rank4_sh (bare launch) != the wrapper's result")
+    return cuda_ms(launch, 20, sleep_cycles=4_000_000)
+
+
 def phase_seed_sharded(dev, seed_gate):
     """The table-sharded seeding kernels (bwt_rank4_sh, bwt_smem_all_sh,
     bwt_smem1_sh, bwt_sa_sh) at two scales.  Smoke scale, phase 4's gate:
@@ -1012,7 +1065,11 @@ def phase_seed_sharded(dev, seed_gate):
                     "bwt_sa_sh": (sa_rows,)}[name]) + 8 * got.numel()
                 if name == "bwt_rank4_sh":
                     st = {"rank4": len(rows4)}
-                ms = cuda_ms(kernel, 20)
+                    # the bare launch: its launch is shorter than the
+                    # wrapper's host time
+                    ms = rank4_bare_ms(v, t["rows4"], got)
+                else:
+                    ms = cuda_ms(kernel, 20)
                 bound_ms, total = seed_bound(st, n_bytes)
                 log(f"{name} at n_dev {len(devs)} (smoke scale): kernel "
                     f"{ms:.4f} ms, plain PyTorch {plain_ms:.1f} ms (one call, "
@@ -1217,7 +1274,8 @@ def phase_seed_sharded(dev, seed_gate):
             got = fn()
             torch.cuda.synchronize()
             same(name, got, plain[name], f"plain (human scale, n_dev {n})")
-            ms = cuda_ms(fn, 5)
+            ms = (rank4_bare_ms(v, hrows, got) if name == "bwt_rank4_sh"
+                  else cuda_ms(fn, 5))
             bound_ms, total = seed_bound(stats[name],
                                          in_bytes[name] + 8 * got.numel())
             log(f"{name} at n_dev {n} on the 6.2 G-row table == plain: "
@@ -1307,24 +1365,152 @@ def global_cells(args):
     return cells
 
 
-def sw_entry(name, ms, plain_ms, cells, tensors, n_out_bytes):
+def sw_entry(name, ms, plain_ms, cells, tensors, n_out_bytes,
+             chain=None):
     """The `kernels` entry of a mate-rescue or CIGAR kernel, logged: its
     bound is the larger of the cells' operations (INT_OPS_PER_CELL a cell,
     over PEAK_INT_OPS) and the bytes of `tensors` read once and
-    n_out_bytes written once (over PEAK_BYTES)."""
+    n_out_bytes written once (over PEAK_BYTES).  Where `chain` = (steps,
+    ns a step) is given, the longest chain of dependent steps (the CIGAR
+    kernel's traceback walk) times one step is a third term, logged with
+    its share and kept as dependence_ms, and the log names the largest of
+    the three."""
     n_bytes = sum(x.numel() * x.element_size() for x in tensors) \
         + n_out_bytes
-    ops_ms, bytes_ms = ops_bound_ms(cells, 1), 1e3 * n_bytes / PEAK_BYTES
-    bound_ms = max(ops_ms, bytes_ms)
-    log(f"{name}: kernel {ms:.3f} ms, plain PyTorch {plain_ms:.3f} ms (CUDA "
+    terms = {"operations": ops_bound_ms(cells, 1),
+             "bytes": 1e3 * n_bytes / PEAK_BYTES}
+    bound_by = max(terms, key=terms.get)
+    bound_ms = terms[bound_by]
+    extra = {}
+    if chain is not None:
+        extra["dependence_ms"] = chain[0] * chain[1] / 1e6
+        terms["dependence"] = extra["dependence_ms"]
+    largest = max(terms, key=terms.get)
+    log(f"{name}: kernel {ms:.4f} ms, plain PyTorch {plain_ms:.3f} ms (CUDA "
         f"events); {cells} cells; bound {bound_ms:.4f} ms (operations "
-        f"{ops_ms:.4f} ms at {INT_OPS_PER_CELL} integer operations a cell "
-        f"over {PEAK_INT_OPS / 1e12:.2f} TOP/s; bytes {bytes_ms:.4f} ms for "
-        f"{n_bytes} B) = {100 * bound_ms / ms:.1f}% of the kernel's time")
+        f"{terms['operations']:.4f} ms at {INT_OPS_PER_CELL} integer "
+        f"operations a cell over {PEAK_INT_OPS / 1e12:.2f} TOP/s; bytes "
+        f"{terms['bytes']:.4f} ms for {n_bytes} B) = "
+        f"{100 * bound_ms / ms:.1f}% of the kernel's time"
+        + ("" if chain is None else
+           f"; dependence {terms['dependence']:.4f} ms (a walk of "
+           f"{chain[0]} steps x {chain[1]:.2f} ns) = "
+           f"{100 * terms['dependence'] / ms:.1f}%")
+        + f"; the largest term: {largest}")
     return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None, "cells": cells}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "cells": cells, **extra}
+
+
+def global_launcher(dev, t, band):
+    """A bare launch of bwt_global_cigar on the tensors t (the arguments of
+    ops/global_cuda.global_batch) into outputs, scratch and an error word
+    made once: the kernel alone, for timing (the wrapper also reads the
+    error word back, a host sync).  Returns (launch, (score, steps,
+    err))."""
+    import torch
+
+    from bwamem_tpu_torch.ops import _build
+
+    q, qlen, tt, tlen, w, mat, pens = t
+    B, qmax, tmax = q.shape[0], q.shape[1], tt.shape[1]
+    lib = _build.load().lib
+    with torch.cuda.device(dev):
+        n = int(lib.bwt_global_cigar_scratch(qmax, tmax, band, B))
+    score = torch.empty(B, dtype=torch.int32, device=dev)
+    steps = torch.empty((qmax + tmax, B), dtype=torch.int8, device=dev)
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    scratch = torch.empty(max(n, 1), dtype=torch.uint8, device=dev)
+
+    def launch():
+        _build.launch(dev, "bwt_global_cigar", q.data_ptr(), qmax,
+                      qlen.data_ptr(), tt.data_ptr(), tmax, tlen.data_ptr(),
+                      w.data_ptr(), B, band, mat.data_ptr(), pens.data_ptr(),
+                      score.data_ptr(), steps.data_ptr(), err.data_ptr(),
+                      scratch.data_ptr())
+
+    return launch, (score, steps, err)
+
+
+def walked_steps(ops, qn, tn):
+    """The steps of a traceback walked in the matrix (before the D/I tail
+    that follows an edge), from a lane's step-ops back to front."""
+    i, k, n = tn - 1, qn - 1, 0
+    for op in ops:
+        if i < 0 or k < 0:
+            break
+        n += 1
+        i -= op != 2
+        k -= op != 1
+    return n
+
+
+def walk_step_ns(dev):
+    """The card's time for one step of the CIGAR kernel's traceback walk
+    (a dependent shared-memory load and its bookkeeping), from two
+    launches of bwt_global_cigar that differ only in their walks: one lane,
+    a 256-base query against a 1,280-base target (w' 1,024: the band is the
+    whole query, the plane in shared memory), the rest of the target N
+    codes, the query at the target's end (its 256 matches walked, the
+    1,024 deletions the tail) or at its start (the deletions walked too).
+    The fills do the same work; the difference of the times (CUDA events)
+    over the difference of the steps walked is the step."""
+    import torch
+
+    from bwamem_tpu_torch.config import MemOptions
+
+    rng = np.random.default_rng(9)
+    opt = MemOptions()
+    qs = rng.integers(0, 4, 256).astype(np.int32)
+    junk = np.full(1024, 4, np.int32)
+    mat = torch.from_numpy(opt.mat.astype(np.int32)).to(dev)
+    pens = torch.tensor([opt.o_del, opt.e_del, opt.o_ins, opt.e_ins],
+                        dtype=torch.int32, device=dev)
+    ms, n = {}, {}
+    for name, target in (("query last", np.concatenate([junk, qs])),
+                         ("query first", np.concatenate([qs, junk]))):
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+            qs[None], [256], target[None], [len(target)], [19])]
+        t = [x.to(torch.int32).contiguous() for x in t] + [mat, pens]
+        launch, (_, steps, err) = global_launcher(dev, t, 256)
+        ms[name] = cuda_ms(launch, 20, sleep_cycles=4_000_000)
+        if int(err.item()):
+            fail("walk step: bwt_global_cigar flagged its band")
+        n[name] = walked_steps(steps[:, 0].tolist(), 256, len(target))
+    a, b = "query last", "query first"
+    if n[b] <= n[a]:
+        fail(f"walk step: walks of {n[a]} and {n[b]} steps")
+    ns = 1e6 * (ms[b] - ms[a]) / (n[b] - n[a])
+    log(f"traceback walk step: {ns:.2f} ns (one lane's launches with walks "
+        f"of {n[a]} and {n[b]} steps: {ms[a]:.4f} and {ms[b]:.4f} ms)")
+    return ns
+
+
+def global_band_rounds():
+    """The CIGAR kernel's gate rounds at every row of its launch table
+    (tests/_torch_gate.global_band_batch; the rows read from
+    csrc/global_sw.cuh) and the memory row above it: [(name, args, the
+    slots in shared memory)].  Each row twice: at a target window that
+    puts its slots in the blocks' shared memory, and at one just long
+    enough that even a 32-thread block's slots pass the card's limit (227
+    KB on an H100), so they go to global scratch."""
+    import _torch_gate as gate
+    from bwamem_tpu_torch.ops import _build
+
+    rows = gate.global_launch_table(os.path.join(_build.CSRC,
+                                                 "global_sw.cuh"))
+    cap = 227 * 1024
+    out = []
+    for k, (band, g, c) in enumerate(rows + [(rows[-1][0] + 44, 32, 0)]):
+        qmax = next(w for w in (64, 128, 256, 320) if w >= band)
+        # a plane row is the window, g * c bytes, for a pair of rows
+        tmaxes = [qmax + 16] if c == 0 else [
+            qmax + 16, 2 * (cap * g // (32 * g * c)) + 2]
+        for tmax in tmaxes:
+            out.append((f"row ({band}, {g}, {c}) at (64, {qmax}, {tmax})",
+                        gate.global_band_batch(70 + k, 64, qmax, tmax, band),
+                        c > 0 and tmax == qmax + 16))
+    return out
 
 
 def phase_sw_kernels(dev):
@@ -1340,8 +1526,8 @@ def phase_sw_kernels(dev):
     import torch
 
     import _torch_gate as gate
-    from bwamem_tpu_torch.ops import (global_cuda, global_torch, local_cuda,
-                                      local_torch)
+    from bwamem_tpu_torch.ops import (_build, global_cuda, global_torch,
+                                      local_cuda, local_torch)
 
     def on(args):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -1362,9 +1548,17 @@ def phase_sw_kernels(dev):
             f"{int((np.asarray(args[1]) == 0).sum())} padding)")
         return t, w
 
-    def check_global(name, args):
+    lib = _build.load().lib
+
+    def check_global(name, args, shared_want=None):
+        """The kernel == plain on every field, with the band the callers
+        pass; `shared_want`: whether the launch's slots must be in shared
+        memory (True) or global scratch (False).  Returns (tensors, band,
+        the plain steps)."""
         t = on(args)
-        got = global_cuda.global_batch(*t)
+        q, qlen, tt, tlen, w = args[:5]
+        band = global_torch.band_width(qlen, tlen, w, q.shape[1])
+        got = global_cuda.global_batch(*t, band=band)
         torch.cuda.synchronize()
         want = global_torch.global_batch(*t)
         for g, w, what in zip(got, want, ("score", "steps")):
@@ -1372,17 +1566,26 @@ def phase_sw_kernels(dev):
                 bad = (g != w).nonzero()[:5].tolist()
                 fail(f"bwt_global_cigar != global_torch.global_batch on "
                      f"{name}: {what} differs at {bad}")
+        with torch.cuda.device(dev):
+            shared = lib.bwt_global_cigar_scratch(
+                q.shape[1], tt.shape[1], band, q.shape[0]) == 0
+        if shared_want is not None and shared != shared_want:
+            fail(f"bwt_global_cigar on {name}: slots in "
+                 f"{'shared memory' if shared else 'global scratch'}")
         st = want[1].cpu().numpy()
         log(f"bwt_global_cigar == plain on the score and all "
             f"{st.shape[0]} step rows x {st.shape[1]} lanes of {name} "
-            f"({int((st == 1).any(0).sum())} lanes with a D, "
+            f"(band {band}, slots in "
+            f"{'shared memory' if shared else 'global scratch'}; "
+            f"{int((st == 1).any(0).sum())} lanes with a D, "
             f"{int((st == 2).any(0).sum())} with an I)")
-        return t
+        return t, band, st
 
     t0 = time.time()
     local, glob = dev_fn_batches()
     tl, wl = check_local(f"the dev-fn wave {SW_LOCAL_SHAPE}", local)
-    tg = check_global(f"the dev-fn round {SW_GLOBAL_SHAPE}", glob)
+    tg, band_g, st_g = check_global(f"the dev-fn round {SW_GLOBAL_SHAPE}",
+                                    glob)
     B = SW_LOCAL_SHAPE[0]
     check_local(f"the hard cases at {SW_LOCAL_SHAPE}",
                 gate.local_sw_batch(31, *SW_LOCAL_SHAPE, n_pad=64))
@@ -1397,7 +1600,20 @@ def phase_sw_kernels(dev):
     args[3][:4] = SW_LONG[2]
     check_local(f"lanes at tmax {SW_LONG[2]} (4 at tlen {SW_LONG[2]})", args)
     args = gate.global_sw_batch(61, *SW_LONG)
-    check_global(f"lanes at tmax {SW_LONG[2]}", args)
+    check_global(f"lanes at tmax {SW_LONG[2]}", args, False)
+    for name, args, shared in global_band_rounds():
+        check_global(name, args, shared)
+    for lanes in (96, 2048):
+        check_global(f"a retry round ({lanes} lanes, w 19 to 152)",
+                     gate.global_retry_batch(lanes, lanes))
+    # a band narrower than the round's widest (the dev-fn round's 39)
+    try:
+        global_cuda.global_batch(*tg, band=8)
+    except ValueError as e:
+        log(f"bwt_global_cigar with band 8 on the dev-fn round raises: {e}")
+    else:
+        fail("bwt_global_cigar: a band too narrow for the lanes did not "
+             "raise")
     log(f"sw gates: {time.time() - t0:.1f}s")
 
     out = {"local_align6": sw_entry(
@@ -1406,11 +1622,14 @@ def phase_sw_kernels(dev):
         cuda_ms(lambda: local_torch.align6(*tl), 1), local_cells(local, wl),
         tl, 4 * 6 * B)}
     B, qmax, tmax = SW_GLOBAL_SHAPE
+    chain = int((st_g != 3).sum(0).max())
+    launch, _ = global_launcher(dev, tg, band_g)
     out["global_cigar"] = sw_entry(
-        f"bwt_global_cigar at {SW_GLOBAL_SHAPE}",
-        cuda_ms(lambda: global_cuda.global_batch(*tg), 20),
+        f"bwt_global_cigar at {SW_GLOBAL_SHAPE}, band {band_g}",
+        cuda_ms(launch, 20, sleep_cycles=4_000_000),
         cuda_ms(lambda: global_torch.global_batch(*tg), 1),
-        global_cells(glob), tg, 4 * B + (qmax + tmax) * B)
+        global_cells(glob), tg, 4 * B + (qmax + tmax) * B,
+        chain=(chain, walk_step_ns(dev)))
     return out
 
 
@@ -1913,12 +2132,26 @@ def phase_pe_device(tmp, run):
     runs.append(("SE", pe[:1], ["--device-cigar"]))
     extend_cuda.reset_launches()
     n_waves = n_rounds = 0
+    # the first CIGAR round of the resident PE run, as it reaches the
+    # kernel's wrapper (gated and timed after the runs)
+    kept, wrapper = [], global_cuda.global_batch
+
+    def keep(*args, **kw):
+        if not kept:
+            kept.append(([x.clone() for x in args], kw.get("band")))
+        return wrapper(*args, **kw)
+
     for label, reads, flags in runs:
         tag = f"dev_{label}_" + "_".join(x.strip("-") for x in flags)
         local_cuda.reset_launches()
         global_cuda.reset_launches()
-        sam, kinds, _, _ = run_mem(tmp, tag, run["fa"], reads,
-                                   [*common, *flags])
+        global_cuda.global_batch = keep if flags == ["--device-cigar"] \
+            and label == "PE" else wrapper
+        try:
+            sam, kinds, _, _ = run_mem(tmp, tag, run["fa"], reads,
+                                       [*common, *flags])
+        finally:
+            global_cuda.global_batch = wrapper
         got = {"rescue_w": local_cuda.launches["local_align6"],
                "cigar_r": global_cuda.launches["global_cigar"]}
         t = trace_sums(os.path.join(tmp, f"{tag}.trace.jsonl"))
@@ -1947,7 +2180,36 @@ def phase_pe_device(tmp, run):
         f"launches) and {n_rounds} CIGAR rounds (bwt_global_cigar launches) "
         f"over {len(runs)} runs; extension launches "
         f"{dict(extend_cuda.launches)}")
-    return pe, {"local_align6": n_waves, "global_cigar": n_rounds}
+    return pe, {"local_align6": n_waves, "global_cigar": n_rounds}, \
+        cigar_path_round(kept)
+
+
+def cigar_path_round(kept):
+    """The CIGAR kernel on the first round that `mem --device-cigar`
+    handed it (kept by phase_pe_device): == the plain version on every
+    field, then timed with the band the caller passed.  Returns the
+    path_* keys of its `kernels` entry."""
+    import torch
+
+    from bwamem_tpu_torch.ops import global_cuda, global_torch
+
+    if not kept:
+        fail("pe-dev: no CIGAR round reached ops/global_cuda.global_batch")
+    t, band = kept[0]
+    got = global_cuda.global_batch(*t, band=band)
+    want = global_torch.global_batch(*t)
+    for g, w, what in zip(got, want, ("score", "steps")):
+        if not torch.equal(g, w):
+            fail(f"bwt_global_cigar != plain on mem's first CIGAR round: "
+                 f"{what}")
+    B, qmax, tmax = t[0].shape[0], t[0].shape[1], t[2].shape[1]
+    ms = cuda_ms(global_launcher(t[0].device, t, band)[0], 20,
+                 sleep_cycles=4_000_000)
+    live = int((t[1] > 0).sum())
+    log(f"bwt_global_cigar on mem's first CIGAR round (B {B}, {live} live "
+        f"lanes, (qmax, tmax) ({qmax}, {tmax}), band {band}) == plain: "
+        f"{ms:.4f} ms")
+    return {"path_ms": ms, "path_shape": [B, qmax, tmax, band]}
 
 
 def phase_device_seed(tmp, run, host_rates):
@@ -2340,6 +2602,14 @@ def main() -> int:
     if any("SPILLS" in e or (" B stack" in e and not e.endswith(" 0 B stack"))
            for e in packed):
         fail("a 16-bit pass instantiation spills or uses stack")
+    cigar = [e for e in ptxas.split("; ") if e.startswith("global_cigar")]
+    log("CIGAR kernel instantiations (registers, static shared memory, "
+        "stack, spills): " + "; ".join(cigar))
+    if not cigar:
+        fail("no CIGAR kernel instantiation in the build log")
+    if any("SPILLS" in e or (" B stack" in e and not e.endswith(" 0 B stack"))
+           for e in cigar):
+        fail("a CIGAR kernel instantiation spills or uses stack")
 
     timing, timing_i16 = phase_kernel(dev)
     timing_t, timing_t_i16 = phase_kernel_t(dev)
@@ -2364,7 +2634,7 @@ def main() -> int:
             ("extend_fused",))
         _, rates_py = phase_python_host(tmp, run)
         launches_i16, path_i16 = phase_i16_path(run, dev)
-        dev_pe, sw_launches = phase_pe_device(tmp, run)
+        dev_pe, sw_launches, cigar_path = phase_pe_device(tmp, run)
         seed_launches, rates_seed = phase_device_seed(tmp, run, rates)
         phase_device_functions(dev)
         phase_multi_device(tmp, run, dev_pe, dev)
@@ -2410,7 +2680,8 @@ def main() -> int:
         + [{"name": name, "route": "cuda",
             "source": f"bwamem_tpu_torch/csrc/{src}",
             "replaces": f"bwamem_tpu/ops/{ref}",
-            "launches": sw_launches[name], **timing_sw[name]}
+            "launches": sw_launches[name], **timing_sw[name],
+            **(cigar_path if name == "global_cigar" else {})}
            for name, src, ref in (
                ("local_align6", "local_sw.cu", "local_jax.py:90"),
                ("global_cigar", "global_sw.cu", "global_jax.py:53"))]}),

@@ -30,7 +30,8 @@ enum { cudaErrorInvalidValue = 1 };
 // helpers), never called by the emulators.
 enum cudaDeviceAttr {
   cudaDevAttrMultiProcessorCount,
-  cudaDevAttrMaxSharedMemoryPerMultiprocessor
+  cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+  cudaDevAttrMaxSharedMemoryPerBlockOptin
 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 int cudaGetDevice(int*);
@@ -39,6 +40,17 @@ template <class F>
 int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int*, F, int, size_t);
 template <class F>
 int cudaFuncSetAttribute(F, cudaFuncAttribute, int);
+
+// the vector types the kernels load and store whole
+struct int4 {
+  int x, y, z, w;
+};
+struct uint4 {
+  unsigned x, y, z, w;
+};
+struct longlong2 {
+  long long x, y;
+};
 
 struct SimtIdx {
   unsigned x;
@@ -85,6 +97,13 @@ inline int __shfl_up_sync(unsigned, int v, unsigned delta, int) {
   const int me = simt::thread_in_group();
   const long long* all = simt::collective(v);
   return me >= (int)delta ? (int)all[me - (int)delta] : v;
+}
+
+inline int __shfl_down_sync(unsigned, int v, unsigned delta, int width) {
+  const int me = simt::thread_in_group();
+  const long long* all = simt::collective(v);
+  // (a thread with no thread `delta` above it in its width gets its own)
+  return (me % width) + (int)delta < width ? (int)all[me + (int)delta] : v;
 }
 
 // bit k: thread k of the group passed a nonzero predicate

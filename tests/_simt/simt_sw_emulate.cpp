@@ -7,10 +7,13 @@
 //       -o libsimt_sw.so tests/_simt/simt_sw_emulate.cpp
 //
 // The launch is the one local_sw.cu and global_sw.cu make: the same shape
-// table (sw::dispatch_sw), the same grid and scratch (sw::launch_grid), and
-// every group of every block runs the body with the indices a real launch
-// gives its threads, the threads of a group as fibers (simt_fibers.h).  The
-// scratch starts as garbage, so a read of a slot before its write shows.
+// tables (sw::dispatch_sw; for the CIGAR kernel sw::dispatch_global from
+// the round's band), the same grid, block and scratch (sw::launch_grid,
+// sw::global_launch, given the card's shared-memory limit a block as an
+// argument), and every group of every block runs the body with the indices
+// a real launch gives its threads, the threads of a group as fibers
+// (simt_fibers.h).  The scratch and the blocks' shared memory start as
+// garbage, so a read of a slot before its write shows.
 // Results must equal the plain PyTorch versions' on every lane:
 // tests/test_torch_simt_sw.py.
 
@@ -19,14 +22,14 @@
 
 namespace {
 
-// Every group of a grid of `blocks` blocks runs body().
+// Every group of a grid of `blocks` blocks of `threads` runs body().
 template <int G, class Body>
-void run_grid(unsigned blocks, Body body) {
+void run_grid(unsigned blocks, Body body, unsigned threads = sw::kThreads) {
   gridDim.x = blocks;
-  blockDim.x = sw::kThreads;
+  blockDim.x = threads;
   for (unsigned blk = 0; blk < blocks; ++blk) {
     blockIdx.x = blk;
-    for (int grp = 0; grp < sw::kThreads / G; ++grp)
+    for (int grp = 0; grp < (int)threads / G; ++grp)
       simt::run_group(
           G, (unsigned)(grp * G),
           [](void* a) { (*static_cast<Body*>(a))(); }, &body);
@@ -61,26 +64,43 @@ struct EmuLocal {
   }
 };
 
+// G, C, slots in shared memory, blocks, threads of the last CIGAR launch
+int last_global[5];
+
 struct EmuGlobal {
   const int32_t *q, *qlen, *t, *tlen, *w, *mat, *pens;
-  int qmax, tmax;
-  int64_t B;
+  int qmax, tmax, band;
+  int64_t B, smem_cap;
   int32_t* score;
   int8_t* steps;
+  int32_t* err;
   template <int G, int C>
   int run() const {
-    const int64_t slot = sw::global_slot_bytes<G, C>(qmax, tmax);
-    unsigned blocks;
-    int64_t bytes;
-    sw::launch_grid<G>(B, slot, &blocks, &bytes);
-    std::vector<unsigned char> scratch = garbage(bytes);
+    const sw::GlobalLaunch l =
+        sw::global_launch<G, C>(qmax, tmax, band, B, smem_cap);
+    const int shape[5] = {G, C, l.shared, (int)l.blocks, (int)l.threads};
+    std::copy(shape, shape + 5, last_global);
+    std::vector<unsigned char> scratch = garbage(l.scratch);
+    std::vector<unsigned char> smem = garbage(l.smem);
     const EmuGlobal& s = *this;
     unsigned char* sp = scratch.data();
-    run_grid<G>(blocks, [&s, sp, slot]() {
-      sw::global_cigar_body<G, C>(s.q, s.qmax, s.qlen, s.t, s.tmax, s.tlen,
-                                  s.w, s.B, s.mat, s.pens, s.score, s.steps,
-                                  sp, slot);
-    });
+    unsigned char* mp = smem.data();
+    run_grid<G>(
+        l.blocks,
+        [&s, &l, sp, mp]() {
+          if constexpr (C > 0) {
+            if (l.shared) {
+              sw::global_cigar_body<G, C, true>(
+                  s.q, s.qmax, s.qlen, s.t, s.tmax, s.tlen, s.w, s.B, s.band,
+                  s.mat, s.pens, s.score, s.steps, s.err, nullptr, mp);
+              return;
+            }
+          }
+          sw::global_cigar_body<G, C, false>(
+              s.q, s.qmax, s.qlen, s.t, s.tmax, s.tlen, s.w, s.B, s.band,
+              s.mat, s.pens, s.score, s.steps, s.err, sp, nullptr);
+        },
+        l.threads);
     return 0;
   }
 };
@@ -122,11 +142,16 @@ int emu_local_align6(const void* q, int qmax, const void* qlen,
   return sw::dispatch_sw(qmax, l);
 }
 
+// bwt_global_cigar's launcher, the card's shared memory a block given as
+// smem_cap (its band clamped to [1, qmax] as there); the shape of the
+// launch goes to emu_global_last.
 int emu_global_cigar(const void* q, int qmax, const void* qlen,
                      const void* t, int tmax, const void* tlen, const void* w,
-                     long long B, const void* mat, const void* pens,
-                     void* score, void* steps) {
+                     long long B, int band, const void* mat, const void* pens,
+                     void* score, void* steps, void* err,
+                     long long smem_cap) {
   if (B <= 0) return 0;
+  band = band > qmax ? (qmax > 1 ? qmax : 1) : (band < 1 ? 1 : band);
   const EmuGlobal l{static_cast<const int32_t*>(q),
                     static_cast<const int32_t*>(qlen),
                     static_cast<const int32_t*>(t),
@@ -134,9 +159,16 @@ int emu_global_cigar(const void* q, int qmax, const void* qlen,
                     static_cast<const int32_t*>(w),
                     static_cast<const int32_t*>(mat),
                     static_cast<const int32_t*>(pens),
-                    qmax, tmax, (int64_t)B, static_cast<int32_t*>(score),
-                    static_cast<int8_t*>(steps)};
-  return sw::dispatch_sw(qmax, l);
+                    qmax, tmax, band, (int64_t)B, (int64_t)smem_cap,
+                    static_cast<int32_t*>(score),
+                    static_cast<int8_t*>(steps), static_cast<int32_t*>(err)};
+  return sw::dispatch_global(band, l);
+}
+
+// (G, C, slots in shared memory, blocks, threads) of the last
+// emu_global_cigar launch.
+void emu_global_last(int* out) {
+  std::copy(last_global, last_global + 5, out);
 }
 
 // The group width, strip length (0: the memory row) and blocks of a launch

@@ -622,3 +622,96 @@ def global_sw_batch(seed, B, qmax, tmax, *, arbitrary=True, n_pad=3):
     ws += [0] * n_pad
     q, qlen, t, tlen = _pack_tasks(tasks, B, qmax, tmax)
     return q, qlen, t, tlen, np.asarray(ws, np.int32), mat, pens
+
+
+def global_launch_table(path):
+    """The launch table of the CIGAR kernel in csrc/global_sw.cuh:
+    BWT_GLOBAL_TABLE's rows as (band, G, C)."""
+    import re
+
+    with open(path) as f:
+        text = f.read()
+    body = re.search(r"#define BWT_GLOBAL_TABLE\(ROW\)((?:[^\n]*\\\n)*[^\n]*)",
+                     text).group(1)
+    return [tuple(int(x) for x in m)
+            for m in re.findall(r"ROW\((\d+), (\d+), (\d+)\)", body)]
+
+
+def global_band_batch(seed, B, qmax, tmax, band, *, arbitrary=True,
+                      n_live=48):
+    """A CIGAR round of B tasks (as global_sw_batch) whose widest band,
+    min(2 max(w, |tlen - qlen|) + 1, qlen), is `band` (2h + 1 for h =
+    (band - 1) // 2, or qmax where that is less): n_live live lanes, the
+    rest padding.  The live lanes: ones at the widest band (w = h, a full
+    query), bands narrower than |tlen - qlen| (w 0 among them), related
+    pairs with substitutions and indels, unrelated pairs with N codes,
+    one-base queries and targets, each with |tlen - qlen| <= h."""
+    rng = np.random.default_rng(seed)
+    mat, pens = _sw_scoring(rng, arbitrary)
+    h = (band - 1) // 2
+    tasks, ws = [], []
+    for k in range(n_live):
+        kind = k % 5
+        if kind == 0:        # the widest band
+            ql = qmax
+            tl = int(np.clip(ql + rng.integers(-h, h + 1), 1, tmax))
+            ts = rng.integers(0, 4, tl)
+            qs = _mutate(rng, np.resize(ts, ql), 3, 0)[:ql]
+            w = h
+        elif kind == 1:      # w below |tlen - qlen|
+            ql = int(rng.integers(1, qmax + 1))
+            tl = int(np.clip(ql + rng.choice([-1, 1]) * rng.integers(
+                0, h + 1), 1, tmax))
+            qs, ts = rng.integers(0, 4, ql), rng.integers(0, 4, tl)
+            w = int(rng.integers(0, abs(tl - ql) + 1)) if k % 3 else 0
+        elif kind == 2:      # related, indels
+            ts = rng.integers(0, 4, int(rng.integers(1, min(qmax, tmax)
+                                                     + 1)))
+            qs = _mutate(rng, ts, int(rng.integers(0, 5)),
+                         int(rng.integers(0, 4)))[:qmax]
+            ts = ts[:min(len(qs) + h, tmax)]
+            if len(qs) - len(ts) > h:
+                qs = qs[:len(ts) + h]
+            w = int(rng.integers(0, h + 1))
+        elif kind == 3:      # unrelated, N codes
+            ql = int(rng.integers(1, qmax + 1))
+            tl = int(np.clip(ql + rng.integers(-h, h + 1), 1, tmax))
+            qs, ts = rng.integers(0, 5, ql), rng.integers(0, 5, tl)
+            w = int(rng.integers(0, h + 1))
+        else:                # one base on a side
+            if rng.random() < 0.5:
+                qs = rng.integers(0, 4, 1)
+                ts = rng.integers(0, 4, int(rng.integers(1, min(h + 1,
+                                                                tmax) + 1)))
+            else:
+                ts = rng.integers(0, 4, 1)
+                qs = rng.integers(0, 4, int(rng.integers(1, min(h + 1,
+                                                                qmax) + 1)))
+            w = int(rng.integers(0, h + 1))
+        tasks.append((np.asarray(qs), np.asarray(ts)))
+        ws.append(w)
+    tasks += [(np.zeros(0, np.int64), np.zeros(0, np.int64))] * (B - n_live)
+    ws += [0] * (B - n_live)
+    q, qlen, t, tlen = _pack_tasks(tasks, B, qmax, tmax)
+    return q, qlen, t, tlen, np.asarray(ws, np.int32), mat, pens
+
+
+def global_retry_batch(seed, B, qmax=160, tmax=176, *, n_pad=8):
+    """A CIGAR round shaped like `mem`'s with its band-doubling retries
+    side by side: 150-base reads against their reference segment with
+    substitutions and indels, bwa's matrix, w 19 on seven lanes of ten and
+    38, 76 and 152 on the others (a retry doubles w), n_pad padding
+    lanes."""
+    rng = np.random.default_rng(seed)
+    mat, pens = _sw_scoring(rng, False)
+    tasks, ws = [], []
+    for k in range(B - n_pad):
+        ts = rng.integers(0, 4, int(rng.integers(140, min(tmax, 160) + 1)))
+        qs = _mutate(rng, ts, int(rng.integers(0, 6)),
+                     int(rng.integers(0, 3)))[:qmax]
+        tasks.append((qs, ts))
+        ws.append(19 << max(k % 10 - 6, 0))
+    tasks += [(np.zeros(0, np.int64), np.zeros(0, np.int64))] * n_pad
+    ws += [0] * n_pad
+    q, qlen, t, tlen = _pack_tasks(tasks, B, qmax, tmax)
+    return q, qlen, t, tlen, np.asarray(ws, np.int32), mat, pens

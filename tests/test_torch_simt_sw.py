@@ -13,9 +13,16 @@ penalties, ties, N codes), on the hard-case batches of tests/
 _torch_gate.py (an arbitrary 5x5 matrix, padding lanes, best-0 lanes,
 bands narrower than |tlen - qlen|, tlen above and below qlen) in a window
 for every group width and strip of the launch table and for the memory row
-beyond it, and on a few lanes at a long target window."""
+beyond it, and on a few lanes at a long target window.  The CIGAR body
+follows the band in a window sized from the round's widest band: it is
+held at one band for every row of its launch table (read from
+global_sw.cuh) and the memory row above it, with its z plane in the
+blocks' shared memory and in global scratch, on rounds that mix w 19
+with the band-doubling retries' widths, and with a band from the host
+too narrow for a lane (the error word)."""
 
 import ctypes
+import functools
 import os
 import subprocess
 
@@ -37,6 +44,13 @@ torch.set_num_threads(1)
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _ROOT = os.path.dirname(_HERE)
+
+# the shared memory a block can have on an H100 (its opt-in limit,
+# cudaDevAttrMaxSharedMemoryPerBlockOptin): the CIGAR kernel's slots go
+# there when a block's fit
+H100_SMEM = 227 * 1024
+GLOBAL_TABLE = gate.global_launch_table(os.path.join(
+    _ROOT, "bwamem_tpu_torch", "csrc", "global_sw.cuh"))
 
 # one window per row of sw_rows.cuh's launch table: (group, strip) = (8, 4)
 # (16, 4) (32, 4) (32, 5) (32, 6) (32, 8), and the memory row (32, 0)
@@ -61,9 +75,10 @@ def emu(tmp_path_factory):
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.emu_local_align6.argtypes = [vp, i32, vp, vp, i32, vp, i64, vp, vp,
                                      vp]
-    lib.emu_global_cigar.argtypes = [vp, i32, vp, vp, i32, vp, vp, i64, vp,
-                                     vp, vp, vp]
+    lib.emu_global_cigar.argtypes = [vp, i32, vp, vp, i32, vp, vp, i64, i32,
+                                     vp, vp, vp, vp, vp, i64]
     lib.emu_sw_shape.argtypes = [i32, i64, vp, vp, vp]
+    lib.emu_global_last.argtypes = [vp]
     for fn in (lib.emu_local_align6, lib.emu_global_cigar, lib.emu_sw_shape):
         fn.restype = i32
     return lib
@@ -86,16 +101,25 @@ def emu_local(lib, args):
     return out
 
 
-def emu_global(lib, args):
+def emu_global(lib, args, smem_cap=H100_SMEM, band=None):
+    """The CIGAR launcher on the batch, its band as the callers give it
+    (global_torch.band_width) unless `band` is given; returns (score,
+    steps, (G, C, slots in shared memory, blocks, threads) of the launch,
+    the error word)."""
     q, qlen, t, tlen, w, mat, pens = _c(args)
     B = q.shape[0]
     score = np.full(B, -77, np.int32)
     steps = np.full((q.shape[1] + t.shape[1], B), -7, np.int8)
+    err = np.zeros(1, np.int32)
+    if band is None:
+        band = global_torch.band_width(qlen, tlen, w, q.shape[1])
     assert lib.emu_global_cigar(_ptr(q), q.shape[1], _ptr(qlen), _ptr(t),
-                                t.shape[1], _ptr(tlen), _ptr(w), B,
+                                t.shape[1], _ptr(tlen), _ptr(w), B, band,
                                 _ptr(mat), _ptr(pens), _ptr(score),
-                                _ptr(steps)) == 0
-    return score, steps
+                                _ptr(steps), _ptr(err), smem_cap) == 0
+    shape = (ctypes.c_int * 5)()
+    lib.emu_global_last(shape)
+    return score, steps, tuple(shape), int(err[0])
 
 
 def plain_local(args):
@@ -140,17 +164,22 @@ def check_local(lib, args, with_jax=True):
     return want
 
 
-def check_global(lib, args, with_jax=True):
-    gs, gst = emu_global(lib, args)
-    ws, wst = plain_global(args)
+def check_global(lib, args, with_jax=True, smem_cap=H100_SMEM,
+                 want=None):
+    """The emulated CIGAR kernel == the plain version (and the JAX
+    program) on every lane; `want` = (plain, JAX) results made before.
+    Returns the plain version's (score, steps) and the launch's shape."""
+    gs, gst, shape, err = emu_global(lib, args, smem_cap)
+    assert err == 0
+    ws, wst = want[0] if want else plain_global(args)
     _same(gs, ws, "score: emulated kernel vs plain")
     _same(gst, wst, "steps: emulated kernel vs plain")
     if with_jax:
-        js, jst = jax_global(args)
+        js, jst = want[1] if want else jax_global(args)
         _same(gs, js, "score: emulated kernel vs global_jax._global_batch")
         _same(gst, jst.astype(np.int8),
               "steps: emulated kernel vs global_jax._global_batch")
-    return ws, wst
+    return (ws, wst), shape
 
 
 def test_launch_table_covers_every_shape(emu):
@@ -187,7 +216,7 @@ def test_global_body_matches_plain_and_jax(emu, shape, arbitrary):
     qmax, tmax = WINDOWS[shape]
     args = gate.global_sw_batch(qmax + tmax + arbitrary, 40, qmax, tmax,
                                 arbitrary=arbitrary)
-    _, steps = check_global(emu, args)
+    (_, steps), _ = check_global(emu, args)
     q, qlen, t, tlen, w = args[:5]
     # not vacuous: bands narrower than |tlen - qlen|, tlen above and below
     # qlen, one-base lanes, CIGARs with D and with I, padding all 3s
@@ -261,4 +290,98 @@ def test_long_target_window(emu):
     args[2][0] = np.random.default_rng(71).integers(0, 4, 4096)
     args[0][0, :] = args[2][0, 3800:4056]   # a full query at the far end
     args[1][0], args[3][0], args[4][0] = 256, 4096, 8
-    check_global(emu, args, with_jax=False)
+    _, shape = check_global(emu, args, with_jax=False)
+    assert shape[2] == 0     # 1 MB planes: in global scratch
+
+
+def test_global_body_at_tmax_16384(emu):
+    """The CIGAR body on a lane at the gates' longest target window (tmax
+    16384, its query at the far end: the band is the whole query, the
+    planes go to global scratch), beside a short lane and a padding lane;
+    the plain version alone (the JAX program compiles a scan a shape)."""
+    args = gate.global_sw_batch(72, 3, 160, 16384, n_pad=1)
+    rng = np.random.default_rng(72)
+    args[2][0] = rng.integers(0, 4, 16384)
+    args[0][0, :] = args[2][0, 16200:16360]
+    args[1][0], args[3][0], args[4][0] = 160, 16384, 19
+    (_, steps), shape = check_global(emu, args, with_jax=False)
+    assert shape[:3] == (32, 5, 0)
+    assert (steps[:, 0] == 1).sum() >= 16000   # the long D run
+
+
+def _table_rows():
+    """(band, G, C, plane): a band for every row of the CIGAR kernel's
+    launch table with the slots in shared memory and in global scratch,
+    and one above the last row (the memory row, C 0, always in global
+    scratch)."""
+    out = [(band, g, c, plane) for band, g, c in GLOBAL_TABLE
+           for plane in ("shared", "global")]
+    out.append((GLOBAL_TABLE[-1][0] + 44, 32, 0, "global"))
+    return out
+
+
+def _band_round(band):
+    """A round of global_band_batch at `band`: 64 lanes (48 live), windows
+    shared by neighbouring rows (so the JAX program compiles a few
+    shapes)."""
+    qmax = next(w for w in (64, 128, 256, 320) if w >= band)
+    return gate.global_band_batch(band, 64, qmax, qmax + 16, band,
+                                  arbitrary=band % 2 == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _band_want(band):
+    args = _band_round(band)
+    return plain_global(args), jax_global(args)
+
+
+@pytest.mark.parametrize("band,G,C,plane", _table_rows(),
+                         ids=[f"{b}-{g}x{c}-{p}"
+                              for b, g, c, p in _table_rows()])
+def test_global_body_at_every_table_row(emu, band, G, C, plane):
+    """The CIGAR body at a band in every row of its launch table, its
+    slots in the blocks' shared memory (where a block of 128, 64 or 32
+    threads has room) and in global scratch (as on a card with no room):
+    == plain == JAX."""
+    args = _band_round(band)
+    assert global_torch.band_width(*(args[k] for k in (1, 3, 4)),
+                                   args[0].shape[1]) == band - 1 + band % 2
+    _, shape = check_global(emu, args, want=_band_want(band),
+                            smem_cap=H100_SMEM if plane == "shared" else 0)
+    assert shape[:3] == (G, C, plane == "shared")
+    assert shape[3] >= 2
+
+
+@pytest.mark.parametrize("lanes", [96, 1024])
+def test_global_body_on_a_retry_round(emu, lanes):
+    """A round that mixes w 19 with the band-doubling retries' widths (38,
+    76, 152) on read-like lanes with indels, at 96 and 1,024 lanes; ==
+    plain == JAX."""
+    args = gate.global_retry_batch(lanes, lanes, n_pad=max(lanes - 96, 8))
+    (_, steps), shape = check_global(emu, args)
+    assert shape[2] == 1 and (args[4] == 152).sum() >= 8
+    assert (steps == 1).any(0).sum() >= 3 and (steps == 2).any(0).sum() >= 3
+
+
+@pytest.mark.parametrize("plane", ["shared", "global"])
+@pytest.mark.parametrize("band,passed,flagged",
+                         [(160, 31, True), (160, 130, False),
+                          (33, 32, True), (300, 260, True)],
+                         ids=["narrower-flagged", "within-window",
+                              "one-column-over", "memory-row-flagged"])
+def test_global_body_flags_a_band_too_narrow(emu, band, passed, flagged,
+                                             plane):
+    """A band from the host narrower than the round's widest (159, 33 or
+    299): where the launch's window cannot hold a lane's band the kernel
+    sets its error word (the wrapper then raises); where the window, sized
+    up to its table row, still holds every lane's band, the result is
+    exact and nothing is flagged."""
+    args = _band_round(band)
+    gs, gst, _, err = emu_global(
+        emu, args, smem_cap=H100_SMEM if plane == "shared" else 0,
+        band=passed)
+    assert err == int(flagged)
+    if not flagged:
+        (ws, wst), _ = _band_want(band)
+        _same(gs, ws, "score: emulated kernel vs plain")
+        _same(gst, wst, "steps: emulated kernel vs plain")

@@ -5,9 +5,11 @@ hopeless for millions of reads.  This module packs the BWT into 2-bit
 lanes (16 symbols per uint32 word, 4 words per 64-symbol Occ block) so
 a rank query is: one row-gather of the block's checkpoint counts, one
 row-gather of its 4 packed words, then branch-free SWAR popcounts.
-Every operation vectorizes over arbitrarily many simultaneous queries
-(numpy here; the identical expressions jit under JAX for the device
-path — ops/smem_jax.py).
+Every operation vectorizes over arbitrarily many simultaneous queries,
+in numpy.  The port's device path is its own twin of these expressions
+(ops/smem_torch.py: rank4, extend_backward4, sa_batch), which holds the
+packed words as int32 widened to int64, since torch has no `>>` or `~`
+for uint32 on the CPU; these functions take the numpy namespace only.
 
 This is the TPU-native analogue of the reference host's occ table; the
 FPGA never sees the index (seeding is host-side in the reference too,
@@ -101,8 +103,17 @@ def _wide_int(xp):
     raise TypeError(f"unsupported array namespace {xp!r}")
 
 
+def _numpy_only(xp):
+    """TypeError unless `xp` is numpy (module docstring)."""
+    if xp is not np:
+        raise TypeError(f"{getattr(xp, '__name__', xp)!r}: the packed rank "
+                        "expressions take numpy; the port's torch twin is "
+                        "ops/smem_torch.py")
+
+
 def _popcount32(x):
-    """Branch-free SWAR popcount; works for numpy arrays and torch tensors."""
+    """Branch-free SWAR popcount of uint32 numpy arrays (the product
+    wraps at 32 bits)."""
     x = x - ((x >> 1) & 0x55555555)
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
     x = (x + (x >> 4)) & 0x0F0F0F0F
@@ -113,8 +124,7 @@ def block_counts(words, vals, r, xp=np):
     """Per-symbol counts of the first r (0..64) symbols of one Occ
     block.  words/vals: (..., 4) uint32 packed lanes; r: (...,) int.
     Returns (..., 4) int32 counts WITHIN the block (no checkpoint
-    added).  Shared by the host/device rank4 below and by the
-    table-sharded rank path (ops/smem_sharded.py)."""
+    added), for rank4 below."""
     wi = xp.arange(BLOCK_WORDS, dtype=r.dtype)
     nsym = xp.clip(r[..., None] - WORD_SYMS * wi, 0, WORD_SYMS)
     full = nsym >= WORD_SYMS
@@ -136,9 +146,9 @@ def rank4(po: PackedOcc, i, xp=np):
     """Counts of each character 0..3 in bwt[0:i) for a batch of positions.
 
     i: integer array of any shape (values in [0, n_rows]); returns
-    (..., 4) int32.  xp = numpy or torch — the expressions are
-    identical in both.
+    (..., 4) int32.  xp: numpy only (module docstring).
     """
+    _numpy_only(xp)
     i = xp.asarray(i)
     blk = i // OCC_BLOCK
     r = i - blk * OCC_BLOCK                       # 0..63
@@ -184,6 +194,7 @@ def sa_value_batch(po: PackedOcc, ssa: np.ndarray, sa_intv: int,
                    rows: np.ndarray, xp=np) -> np.ndarray:
     """Batched bwt_sa: text positions for a batch of SA rows via masked
     lockstep LF-walks (each <= sa_intv steps)."""
+    _numpy_only(xp)
     r = xp.asarray(rows).astype(_wide_int(xp)).copy()
     d = np.zeros_like(r)
     val = np.zeros_like(r)

@@ -138,7 +138,9 @@ class Programs(smem_torch.Programs):
     bwt_smem1's rows are the round's jobs only.  On a CUDA device every
     copy goes through a pinned buffer of this thread's own, one a
     program, grown as needed (one seeder serves every --inflight thread);
-    what is returned is a copy, not a view of it."""
+    what is returned is a copy, not a view of it.  `_narrow` takes a list
+    of outputs (parallel/dist.ShardedPrograms passes one a shard) and
+    cuts them all to one C."""
 
     def __init__(self, d, ssa, sa_intv: int):
         super().__init__(d, ssa, sa_intv)
@@ -149,8 +151,8 @@ class Programs(smem_torch.Programs):
 
     def _host(self, name, t):
         """The tensor t as a numpy array of its own."""
-        if t.device.type != "cuda":
-            return t.numpy().copy()
+        if t.device.type != "cuda" or t.numel() == 0:
+            return t.cpu().numpy().copy()
         n = t.numel()
         buf = getattr(self._pinned, name, None)
         if buf is None or buf.numel() < n:
@@ -161,24 +163,27 @@ class Programs(smem_torch.Programs):
         view.copy_(t)
         return view.numpy().copy()
 
-    def _narrow(self, name, out, head, n_col, cap):
-        """out's head columns and the first C of each field's `cap` slots,
-        C = the largest count (head column n_col) of any row."""
-        C = int(self._host(name + "_head", out[:, :head])[:, n_col].max(
-            initial=0))
-        body = out[:, head:].view(len(out), 5, cap)[:, :, :C]
-        return self._host(name, torch.cat(
-            [out[:, :head], body.reshape(len(out), 5 * C)], 1))
+    def _narrow(self, name, outs, head, n_col, cap):
+        """The outputs `outs` (one a shard, in row order) joined: each
+        one's head columns and the first C of each field's `cap` slots,
+        C = the largest count (head column n_col) of any row of any of
+        them, so every part has the same width.  Every head is copied
+        back before any body."""
+        C = max(int(self._host(name + "_head", o[:, :head])[:, n_col].max(
+            initial=0)) for o in outs)
+        return np.concatenate([self._host(name, torch.cat(
+            [o[:, :head], o[:, head:].view(len(o), 5, cap)[:, :, :C]
+             .reshape(len(o), 5 * C)], 1)) for o in outs])
 
     def all_fn(self, q, qlen, msl):
-        return self._narrow("all", smem_all(self.d, q, qlen, msl), 2, 0,
+        return self._narrow("all", [smem_all(self.d, q, qlen, msl)], 2, 0,
                             smem_torch.ALL_CAP)
 
     def smem1_fn(self, q, qlen, x, min_intv, mask):
         out = smem1(self.d, q, qlen, self._put(x), self._put(min_intv),
                     self._put(mask.astype(np.uint8)))
         jobs = out.index_select(0, self._put(np.nonzero(mask)[0]))
-        return self._narrow("smem1", jobs, 3, 2, smem_torch.M_CAP)
+        return self._narrow("smem1", [jobs], 3, 2, smem_torch.M_CAP)
 
     def sa_fn(self, rows):
         return self._host("sa", sa(self.d, self.ssa, self.sa_intv,

@@ -295,6 +295,7 @@ class TableShardedPrograms(dist.ShardedPrograms):
         self.ssas = {d: t.ssa for d, t in self.tables.items()}
         self.d = self.tables[self.devices[0]]
         self.sa_intv = tabs.sa_intv
+        self._pinned = threading.local()
 
 
 def make_table_sharded_seeder(devices, po, fm, opt):

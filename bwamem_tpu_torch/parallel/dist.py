@@ -386,7 +386,7 @@ def make_sharded_cigar_idx_backend(devices, pac=None, text_dev=None):
     return cigar_idx
 
 
-class ShardedPrograms(smem_torch.Programs):
+class ShardedPrograms(smem_cuda.Programs):
     """The three seeding programs with their rows split over `devices`
     (smem_torch.Programs' interface, numpy out): each distinct device
     holds its own DeviceOcc and sampled SA; each shard runs
@@ -394,7 +394,10 @@ class ShardedPrograms(smem_torch.Programs):
     version on the CPU) and the shards' rows are joined in order.  Row
     counts need not be multiples of n_dev: the split is uneven where they
     are not.  The chunk's reads arrive on the first device and each shard
-    is copied from there."""
+    is copied from there.  What comes back is smem_cuda.Programs' narrowed
+    form, through its pinned buffers: every shard's head columns first,
+    then each shard's slots up to the largest count over all shards (one
+    width for the whole call), bwt_smem1's job rows only."""
 
     # the wrappers each shard runs (ops/smem_sharded.TableShardedPrograms
     # runs its own over the tables it shares)
@@ -415,24 +418,27 @@ class ShardedPrograms(smem_torch.Programs):
     def all_fn(self, q, qlen, msl):
         ins = [(d, q[a:b].to(d), qlen[a:b].to(d))
                for d, (a, b) in self._shards(q.shape[0])]
-        return collect([self.smem_all(self.tables[d], qs, ls, msl)
-                        for d, qs, ls in ins], 0)
+        return self._narrow("all", [self.smem_all(self.tables[d], qs, ls, msl)
+                                    for d, qs, ls in ins],
+                            2, 0, smem_torch.ALL_CAP)
 
     def smem1_fn(self, q, qlen, x, min_intv, mask):
         mask = mask.astype(np.uint8)
         ins = [(d, q[a:b].to(d), qlen[a:b].to(d),
-                *(torch.from_numpy(np.ascontiguousarray(v[a:b])).to(d)
-                  for v in (x, min_intv, mask)))
+                *(torch.from_numpy(np.ascontiguousarray(v)).to(d)
+                  for v in (x[a:b], min_intv[a:b], mask[a:b],
+                            np.nonzero(mask[a:b])[0])))
                for d, (a, b) in self._shards(q.shape[0])]
-        return collect([self.smem1(self.tables[d], *xs)
-                        for d, *xs in ins], 0)
+        jobs = [self.smem1(self.tables[d], *xs).index_select(0, job)
+                for d, *xs, job in ins]
+        return self._narrow("smem1", jobs, 3, 2, smem_torch.M_CAP)
 
     def sa_fn(self, rows):
         ins = [(d, torch.from_numpy(np.ascontiguousarray(rows[a:b])).to(d))
                for d, (a, b) in self._shards(rows.shape[0])]
-        return collect([self.sa(self.tables[d], self.ssas[d],
-                                self.sa_intv, r)
-                        for d, r in ins], 0)
+        outs = [self.sa(self.tables[d], self.ssas[d], self.sa_intv, r)
+                for d, r in ins]
+        return np.concatenate([self._host("sa", o) for o in outs])
 
 
 def make_sharded_device_seeder(devices, po, fm, opt,

@@ -1154,11 +1154,12 @@ def phase_seed_sharded(dev, seed_gate):
     for n in (1, 4):
         seed_fn = dist.make_sharded_device_seeder([dev] * n, gpo, gfm, opt,
                                                   table_sharded=True)
-        pipe.seed_fn = seed_fn
-        try:
-            got_sam = sam()
-        finally:
-            pipe.seed_fn = None
+        with seeder_copies() as chunked:
+            pipe.seed_fn = copies = chunked(seed_fn)
+            try:
+                got_sam = sam()
+            finally:
+                pipe.seed_fn = None
         if got_sam != want_sam:
             w, g = want_sam.splitlines(), got_sam.splitlines()
             i = next((k for k, (a, b) in enumerate(zip(w, g)) if a != b),
@@ -1166,6 +1167,8 @@ def phase_seed_sharded(dev, seed_gate):
             fail(f"table-sharded seeding at n_dev {n}: SAM differs from "
                  f"host seeding at line {i}:\n{g[i:i + 1]}\n{w[i:i + 1]}")
         seeders.append((n, seed_fn.stats.counts))
+        log(f"table-sharded seeder at n_dev {n}, copied back (D2H): "
+            f"{copies_summary(copies.chunks)}")
     launches = dict(smem_sharded.launches)
     want = {"bwt_smem_all_sh": sum(n * c["chunks"] for n, c in seeders),
             "bwt_smem1_sh": sum(n * c["split_rounds"] for n, c in seeders),
@@ -2348,6 +2351,86 @@ def wall_summary(walls):
             if walls else "no calls")
 
 
+@contextlib.contextmanager
+def seeder_copies():
+    """What the sharded seeders copy back, chunk by chunk, inside the
+    block.  Every device-to-host copy of a seeding Programs goes through
+    smem_cuda.Programs._host, which this wraps: its device synchronized
+    first, so a copy's time leaves out the kernel before it.  The kernel
+    outputs each shard returns are kept and, after the chunk, copied back
+    once more whole through pageable memory, as the full-width layout
+    (each shard's (B, 642) / (B, 323) rows) was, and timed the same way.
+    Yields `chunked(seed_fn)`, a seed_fn whose every call is one chunk;
+    its .chunks holds (narrowed bytes, ms, full-width bytes, ms) a
+    chunk."""
+    import torch
+
+    from bwamem_tpu_torch.ops import smem_cuda, smem_sharded
+    from bwamem_tpu_torch.parallel import dist
+
+    now = {"bytes": 0, "ms": 0.0, "outs": []}
+    host = smem_cuda.Programs._host
+
+    def timed_host(self, name, t):
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        t0 = time.perf_counter()
+        got = host(self, name, t)
+        now["ms"] += 1e3 * (time.perf_counter() - t0)
+        now["bytes"] += t.numel() * t.element_size()
+        return got
+
+    def kept(fn):
+        def wrapped(*args):
+            out = fn(*args)
+            now["outs"].append(out)
+            return out
+        return staticmethod(wrapped)
+
+    saved = [(smem_cuda.Programs, "_host", host)]
+    smem_cuda.Programs._host = timed_host
+    for cls in (dist.ShardedPrograms, smem_sharded.TableShardedPrograms):
+        for name in ("smem_all", "smem1", "sa"):
+            saved.append((cls, name, cls.__dict__[name]))
+            setattr(cls, name, kept(getattr(cls, name)))
+
+    def chunked(seed_fn):
+        def wrapped(reads):
+            now.update(bytes=0, ms=0.0, outs=[])
+            got = seed_fn(reads)
+            full, ms = 0, 0.0
+            for o in now["outs"]:
+                if o.is_cuda:
+                    torch.cuda.synchronize(o.device)
+                t0 = time.perf_counter()
+                o.cpu().numpy()
+                ms += 1e3 * (time.perf_counter() - t0)
+                full += o.numel() * o.element_size()
+            wrapped.chunks.append((now["bytes"], now["ms"], full, ms))
+            now["outs"] = []
+            return got
+
+        wrapped.chunks = []
+        wrapped.stats = seed_fn.stats
+        return wrapped
+
+    try:
+        yield chunked
+    finally:
+        for cls, name, attr in saved:
+            setattr(cls, name, attr)
+
+
+def copies_summary(chunks):
+    """The per-chunk copy-back figures of seeder_copies, and their sums."""
+    nb, nms, fb, fms = (sum(c[k] for c in chunks) for k in range(4))
+    per = ", ".join(f"{a} B {b:.3f} ms (full {c} B {d:.3f} ms)"
+                    for a, b, c, d in chunks)
+    return (f"{len(chunks)} chunks: {per}; sum {nb} B in {nms:.3f} ms "
+            f"narrowed, pinned, against {fb} B in {fms:.3f} ms full-width, "
+            f"pageable ({fb / max(nb, 1):.1f}x the bytes)")
+
+
 def phase_multi_device(tmp, run, dev_pe, dev):
     """The multi-device layer on the card: the dry run over [dev] * 4 (and
     over every visible card when there are several), the sharded
@@ -2466,15 +2549,18 @@ def phase_multi_device(tmp, run, dev_pe, dev):
                 f"{wall_summary(timed.walls)}")
 
         seed_fn = dist.make_sharded_device_seeder(devs, po, fm, opt)
-        timed = timed_calls(seed_fn)
         smem_cuda.reset_launches()
-        pipe.seed_fn = timed
-        try:
-            same(want_se, se_text(single), f"SE, sharded seeder at n_dev {n}")
-            same(want_pe, pe_text(pe, single),
-                 f"PE, sharded seeder at n_dev {n}")
-        finally:
-            pipe.seed_fn = None
+        with seeder_copies() as chunked:
+            copies = chunked(seed_fn)
+            timed = timed_calls(copies)
+            pipe.seed_fn = timed
+            try:
+                same(want_se, se_text(single),
+                     f"SE, sharded seeder at n_dev {n}")
+                same(want_pe, pe_text(pe, single),
+                     f"PE, sharded seeder at n_dev {n}")
+            finally:
+                pipe.seed_fn = None
         c, counts = seed_fn.stats.counts, dict(smem_cuda.launches)
         want = {"bwt_smem_all": n * c["chunks"],
                 "bwt_smem1": n * c["split_rounds"], "bwt_sa": n * c["chunks"]}
@@ -2485,6 +2571,8 @@ def phase_multi_device(tmp, run, dev_pe, dev):
             f"seeding's; launches {counts} == {n} x ({c['chunks']} chunks, "
             f"{c['split_rounds']} re-seed rounds); wall "
             f"{wall_summary(timed.walls)}")
+        log(f"sharded seeder at n_dev {n}, copied back (D2H): "
+            f"{copies_summary(copies.chunks)}")
 
         for name, ext, rescue, cigar in (
                 ("resident", dist.make_sharded_fused_idx_backend(

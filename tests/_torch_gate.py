@@ -13,11 +13,50 @@ directory on sys.path); imports numpy and the port only."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from bwamem_tpu_torch.config import build_mat
 from bwamem_tpu_torch.ops.extend_ref import ksw_extend_core
 from bwamem_tpu_torch.ops.extend_torch import prm_ints
+
+
+def plain(x):
+    """x as plain Python data, for an exact comparison of a result of the
+    port with the JAX package's (whose classes are others of the same
+    name): a dataclass or a named tuple as its class name and fields, a
+    numpy array as its dtype, shape and values, a numpy scalar as a
+    Python number, containers element by element."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return (type(x).__name__, {f.name: plain(getattr(x, f.name))
+                                   for f in dataclasses.fields(x)})
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return (type(x).__name__, {k: plain(v)
+                                   for k, v in zip(x._fields, x)})
+    if isinstance(x, np.ndarray):
+        return ("ndarray", x.dtype.str, x.shape, x.tolist())
+    if isinstance(x, np.generic):
+        return x.item()
+    if isinstance(x, (list, tuple)):
+        return [plain(v) for v in x]
+    if isinstance(x, dict):
+        return {k: plain(v) for k, v in x.items()}
+    return x
+
+
+def same_sam(got, want):
+    """SAM records (lists of SamLine lists, or text) of the port against
+    the JAX package's, line for line."""
+    def lines(recs):
+        if isinstance(recs, str):
+            return recs.splitlines()
+        return [[r.line() for r in rr] for rr in recs]
+
+    g, w = lines(got), lines(want)
+    assert len(g) == len(w), (len(g), len(w))
+    for i, (a, b) in enumerate(zip(g, w)):
+        assert a == b, (i, a, b)
 
 
 def _task(rng, n, qmax, tmax, w):
@@ -496,6 +535,63 @@ def read_matrix(reads):
     for b, r in enumerate(reads):
         mat[b, :len(r)] = r
     return mat, qlen
+
+
+def _cut(full, head, n_col, cap, C=None):
+    """Full-width seeding rows cut to their head and the first C slots of
+    each of the five fields, C the largest count (column n_col) unless
+    given."""
+    if C is None:
+        C = int(full[:, n_col].max(initial=0))
+    body = full[:, head:].reshape(len(full), 5, cap)[:, :, :C]
+    return np.concatenate([full[:, :head], body.reshape(len(full), 5 * C)],
+                          1)
+
+
+def check_narrowed_rows(progs, one, plain, reads, shards):
+    """A sharded seeding Programs' narrowed rows against the plain
+    full-width rows (`plain`, smem_torch.Programs) cut to the widest count
+    and against the one-device seeder's (`one`, smem_cuda.Programs), for
+    smem_all, for a re-seed round whose jobs leave the shard without the
+    widest job row empty (when there are two shards or more), and for SA
+    rows.  `shards` are the row ranges of the split.  Returns the round's
+    per-shard largest counts, in shard order (None for a shard without a
+    job)."""
+    import torch
+
+    from bwamem_tpu_torch.ops.smem_torch import ALL_CAP, M_CAP
+
+    q, qlen = read_matrix(reads)
+    dev = plain.d.device
+    q_d, qlen_d = torch.from_numpy(q).to(dev), torch.from_numpy(qlen).to(dev)
+
+    full = plain.all_fn(q_d, qlen_d, 19)
+    got = progs.all_fn(q_d, qlen_d, 19)
+    np.testing.assert_array_equal(got, _cut(full, 2, 0, ALL_CAP))
+    np.testing.assert_array_equal(got, one.all_fn(q_d, qlen_d, 19))
+
+    x = qlen // 2
+    mis = np.full(len(reads), 2, np.int64)
+    every = plain.smem1_fn(q_d, qlen_d, x, mis, np.ones(len(reads), bool))
+    widest = int(np.argmax(every[:, 2]))
+    mask = qlen >= 20
+    if len(shards) > 1:
+        empty = next(k for k, (a, b) in enumerate(shards)
+                     if not a <= widest < b)
+        a, b = shards[empty]
+        mask[a:b] = False
+    full = plain.smem1_fn(q_d, qlen_d, x, mis, mask)[mask]
+    got = progs.smem1_fn(q_d, qlen_d, x, mis, mask)
+    np.testing.assert_array_equal(got, _cut(full, 3, 2, M_CAP))
+    np.testing.assert_array_equal(got, one.smem1_fn(q_d, qlen_d, x, mis,
+                                                    mask))
+    assert got.shape[1] == 3 + 5 * int(every[widest, 2])
+    own = [int(every[a:b][mask[a:b], 2].max()) if mask[a:b].any() else None
+           for a, b in shards]
+
+    rows = np.arange(0, int(plain.d.n_rows), 7, dtype=np.int64)
+    np.testing.assert_array_equal(progs.sa_fn(rows), plain.sa_fn(rows))
+    return own
 
 
 def _sw_scoring(rng, arbitrary):

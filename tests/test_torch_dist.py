@@ -291,6 +291,26 @@ def test_seeder_rows_equal_single(seed_world, n):
     assert c["split_rounds"] >= 1 and c["ovf_reads"] >= 1 and len(want) > 200
 
 
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_sharded_programs_copy_narrowed_rows(seed_world, n):
+    """ShardedPrograms copies back smem_cuda.Programs' narrowed form: the
+    plain full-width rows cut to one width, the largest count over every
+    shard, equal to the one-device seeder's rows.  n = 3 splits 59 reads
+    unevenly; the re-seed round leaves one shard without a job while
+    another holds the widest job row."""
+    from bwamem_tpu_torch.ops import smem_cuda
+
+    fm, po, reads = seed_world
+    progs = dist.ShardedPrograms(_cpus(n), po, fm.ssa, fm.sa_intv)
+    d = smem_torch.DeviceOcc(po, CPU)
+    own = gate.check_narrowed_rows(
+        progs, smem_cuda.Programs(d, fm.ssa, fm.sa_intv),
+        smem_torch.Programs(d, fm.ssa, fm.sa_intv), reads,
+        dist.split_rows(len(reads), n))
+    if n > 1:
+        assert own.count(None) == 1, own
+
+
 def test_seeder_regimes(world, monkeypatch):
     """A reads-sharded regime forced at 2^31 rows or more raises; an index
     of 2^31 rows or more (a stub: n_rows = 2^31 + 7) and table_sharded=

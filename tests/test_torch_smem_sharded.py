@@ -28,7 +28,10 @@ from bwamem_tpu_torch.config import MemOptions
 from bwamem_tpu_torch.index.build import build_index
 from bwamem_tpu_torch.index.occ_packed import pack_occ, rank4
 from bwamem_tpu_torch.ops import smem_sharded, smem_torch
+from bwamem_tpu_torch.parallel import dist
 from bwamem_tpu_torch.pipeline.align import revcomp_read
+
+import _torch_gate as gate
 
 torch.set_num_threads(1)
 
@@ -138,6 +141,26 @@ def test_seeder_rows_match_jax(world, jax_out, n):
     assert c["chunks"] == 1 and c["split_rounds"] >= 1, c
     np.testing.assert_array_equal(
         got, smem_torch.make_device_seeder(po, fm, opt, CPU)(reads))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_programs_copy_narrowed_rows(world, n):
+    """TableShardedPrograms copies back smem_cuda.Programs' narrowed form
+    through dist.ShardedPrograms: the plain full-width rows cut to the
+    largest count over every shard, equal to the one-device seeder's rows;
+    the re-seed round leaves one shard without a job."""
+    from bwamem_tpu_torch.ops import smem_cuda
+
+    fm, po, reads, _ = world
+    tabs = smem_sharded.ShardedSeedTables(po, fm.ssa, fm.sa_intv, [CPU] * n)
+    d = smem_torch.DeviceOcc(po, CPU)
+    own = gate.check_narrowed_rows(
+        smem_sharded.TableShardedPrograms(tabs),
+        smem_cuda.Programs(d, fm.ssa, fm.sa_intv),
+        smem_torch.Programs(d, fm.ssa, fm.sa_intv), reads,
+        dist.split_rows(len(reads), n))
+    if n > 1:
+        assert own.count(None) == 1, own
 
 
 @pytest.mark.parametrize("n", [3, 8])

@@ -15,7 +15,13 @@
 //   split re-seed rounds of collect_smems_device); a read whose mask is 0
 //   runs at x = qlen (nothing).  Row b: [ret, ovf, n, qb[64], qe[64],
 //   x0[64], x1[64], s[64]] int64, slots past n 0.
-// - bwt_sa: _sa_kernel, the LF walk of each row; int64 positions.
+// - bwt_sa: _sa_kernel, the LF walk of each row; int64 positions.  A
+//   thread walks a row: each step reads its block's 64-byte record (one
+//   DRAM line and one translation when the tables outgrow L2), counts only
+//   the base the step follows, and finds the sampled rows by a mask and a
+//   shift (a power-of-two sa_intv; a division otherwise).  At an index in
+//   DRAM the walks of a launch are bound by the card's rate of random
+//   line reads, each walk by its chain of dependent loads.
 // Every output equals the plain PyTorch version (ops/smem_torch.py) and,
 // at positions below 2^31, the JAX programs.
 //
@@ -160,17 +166,19 @@ __global__ void __launch_bounds__(kWarpBlock)
 template <class Tab>
 __global__ void __launch_bounds__(kRowBlock)
     sa_kernel(Tab ix, const int64_t* __restrict__ ssa, int64_t n_ssa,
-              int64_t sa_intv, const int64_t* __restrict__ rows, int64_t n,
-              int64_t max_it, int64_t* __restrict__ out) {
+              int64_t sa_intv, int sa_shift,
+              const int64_t* __restrict__ rows, int64_t n, int64_t max_it,
+              int64_t* __restrict__ out) {
   const int64_t k = thread_index();
   if (k >= n) return;
-  out[k] = fmseed::sa_value_dev(ix, ssa, n_ssa, sa_intv, rows[k], max_it);
+  out[k] = fmseed::sa_value_dev(ix, ssa, n_ssa, sa_intv, sa_shift, rows[k],
+                                max_it);
 }
 
 // rank4 of kRank4Rows rows a thread (rows t, t + kRank4Block, ... of the
 // block's span, so a warp's reads and writes of each are contiguous): the
-// row indices loaded, then every row's three 16-byte block rows, then the
-// counts, two 16-byte stores a row.
+// row indices loaded, then every row's record (three 16-byte loads), then
+// the counts, two 16-byte stores a row.
 __global__ void __launch_bounds__(kRank4Block)
     rank4_kernel(ShardedOcc ix, const int64_t* __restrict__ rows, int64_t n,
                  int64_t* __restrict__ out) {
@@ -196,12 +204,18 @@ __global__ void __launch_bounds__(kRank4Block)
   }
 }
 
-Occ make_occ(const void* occ, const void* pk, const void* va, const void* C,
-             long long primary, long long n_rows) {
-  return Occ{static_cast<const int32_t*>(occ),
-             static_cast<const uint32_t*>(pk),
-             static_cast<const uint32_t*>(va),
+Occ make_occ(const void* rec, const void* C, long long primary,
+             long long n_rows) {
+  return Occ{static_cast<const int32_t*>(rec),
              static_cast<const int64_t*>(C), primary, n_rows};
+}
+
+// log2(v) for a power of two v, -1 for any other v (the walks' sa_shift).
+int exact_log2(long long v) {
+  if (v <= 0 || (v & (v - 1))) return -1;
+  int s = 0;
+  while ((1LL << s) != v) ++s;
+  return s;
 }
 
 }  // namespace
@@ -225,14 +239,14 @@ Occ make_occ(const void* occ, const void* pk, const void* va, const void* C,
 extern "C" {
 
 // The first SMEM round of B reads: q (B, L) uint8 codes (N and pad = 4),
-// qlen (B,) int64, out (B, 2 + 5*128) int64.  The tables: occ (nb+1, 4)
-// int32, pk and va (nb, 4) uint32, C (6,) int64.
-int bwt_smem_all(const void* occ, const void* pk, const void* va,
-                 const void* C, long long primary, long long n_rows,
-                 const void* q, int L, const void* qlen, long long B,
-                 long long min_seed_len, void* out, void* stream) {
+// qlen (B,) int64, out (B, 2 + 5*128) int64.  The tables: rec (nb+1, 16)
+// int32 block records (fm_seed.cuh), 64-byte aligned, C (6,) int64.
+int bwt_smem_all(const void* rec, const void* C, long long primary,
+                 long long n_rows, const void* q, int L, const void* qlen,
+                 long long B, long long min_seed_len, void* out,
+                 void* stream) {
   FM_LAUNCH_READS(smem_all_kernel<Occ>, (int64_t)B, stream,
-            make_occ(occ, pk, va, C, primary, n_rows),
+            make_occ(rec, C, primary, n_rows),
             static_cast<const uint8_t*>(q), L,
             static_cast<const int64_t*>(qlen), (int64_t)B,
             (int64_t)min_seed_len, static_cast<int64_t*>(out));
@@ -240,12 +254,12 @@ int bwt_smem_all(const void* occ, const void* pk, const void* va,
 
 // One bwt_smem1 call a read: x, min_intv (B,) int64, mask (B,) uint8 (0:
 // the read runs at x = qlen), out (B, 3 + 5*64) int64.
-int bwt_smem1(const void* occ, const void* pk, const void* va, const void* C,
-              long long primary, long long n_rows, const void* q, int L,
-              const void* qlen, const void* x, const void* min_intv,
-              const void* mask, long long B, void* out, void* stream) {
+int bwt_smem1(const void* rec, const void* C, long long primary,
+              long long n_rows, const void* q, int L, const void* qlen,
+              const void* x, const void* min_intv, const void* mask,
+              long long B, void* out, void* stream) {
   FM_LAUNCH_READS(smem1_kernel<Occ>, (int64_t)B, stream,
-            make_occ(occ, pk, va, C, primary, n_rows),
+            make_occ(rec, C, primary, n_rows),
             static_cast<const uint8_t*>(q), L,
             static_cast<const int64_t*>(qlen),
             static_cast<const int64_t*>(x),
@@ -256,15 +270,16 @@ int bwt_smem1(const void* occ, const void* pk, const void* va, const void* C,
 
 // Text positions of n SA rows (int64): ssa (n_ssa,) int64 sampled every
 // sa_intv rows; a walk gives up (0) after max_it steps.
-int bwt_sa(const void* occ, const void* pk, const void* va, const void* C,
-           long long primary, long long n_rows, const void* ssa,
-           long long n_ssa, long long sa_intv, const void* rows, long long n,
+int bwt_sa(const void* rec, const void* C, long long primary,
+           long long n_rows, const void* ssa, long long n_ssa,
+           long long sa_intv, const void* rows, long long n,
            long long max_it, void* out, void* stream) {
   FM_LAUNCH_ROWS(sa_kernel<Occ>, (int64_t)n, stream,
-            make_occ(occ, pk, va, C, primary, n_rows),
+            make_occ(rec, C, primary, n_rows),
             static_cast<const int64_t*>(ssa), (int64_t)n_ssa,
-            (int64_t)sa_intv, static_cast<const int64_t*>(rows), (int64_t)n,
-            (int64_t)max_it, static_cast<int64_t*>(out));
+            (int64_t)sa_intv, exact_log2(sa_intv),
+            static_cast<const int64_t*>(rows), (int64_t)n, (int64_t)max_it,
+            static_cast<int64_t*>(out));
 }
 
 // The same four programs over a ShardedOcc (fm_seed.cuh) at *tab: every
@@ -306,8 +321,9 @@ int bwt_smem1_sh(const ShardedOcc* tab, const void* q, int L,
 int bwt_sa_sh(const ShardedOcc* tab, const void* rows, long long n,
               long long max_it, void* out, void* stream) {
   FM_LAUNCH_ROWS(sa_kernel<ShardedOcc>, (int64_t)n, stream, *tab, nullptr,
-            tab->n_ssa, tab->sa_intv, static_cast<const int64_t*>(rows),
-            (int64_t)n, (int64_t)max_it, static_cast<int64_t*>(out));
+            tab->n_ssa, tab->sa_intv, exact_log2(tab->sa_intv),
+            static_cast<const int64_t*>(rows), (int64_t)n, (int64_t)max_it,
+            static_cast<int64_t*>(out));
 }
 
 #ifdef __CUDACC__

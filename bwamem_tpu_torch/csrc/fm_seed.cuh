@@ -21,17 +21,21 @@
 // A read whose flag is set is searched again by the host's exact scalar
 // smem1, as in the JAX package.
 //
-// The tables are the packed occ layout of index/occ_packed.py: per
-// 64-symbol block a row of four int32 checkpoints and four 32-bit words of
-// 2-bit symbols (pk) and of 0b01 validity lanes (va).  A rank4 query reads
-// one 48-byte block (16 B of each); everything else is integer work in
-// registers.  Positions are int64.  What bounds a read is its chain of
-// dependent gathers, one rank4 pair an extension step: see fm_seed.cu.
+// The tables are the packed occ layout of index/occ_packed.py, interleaved
+// into one 64-byte record a 64-symbol block (kRecWords int32 words): the
+// four int32 checkpoints (occ), the four 32-bit words of 2-bit symbols
+// (pk), the four words of 0b01 validity lanes (va), 16 bytes of padding;
+// record nb holds occ's sentinel row (ops/smem_torch.py, block_records).
+// A rank4 query or an LF step reads one record, 64-byte aligned: one line
+// and one address translation, where three separate tables cost three.
+// Everything else is integer work in registers.  Positions are int64.
+// What bounds a read is its chain of dependent gathers, one rank4 pair an
+// extension step: see fm_seed.cu.
 //
 // Two table types: Occ, the whole index on the thread's own card, and
 // ShardedOcc, the index split by block range over up to kMaxShards cards
 // (ops/smem_sharded.py).  They differ only in block_of (where a block's
-// three rows lie) and sample_at (where a sampled-SA entry lies); the
+// record lies) and sample_at (where a sampled-SA entry lies); the
 // search, the walks and their caps are one code for both.
 
 #pragma once
@@ -55,10 +59,10 @@ constexpr int kMCap = 64;     // SMEMs one call emits (M_CAP)
 constexpr int kAllCap = 128;  // first-round SMEMs a read (ALL_CAP)
 constexpr unsigned kFull = 0xffffffffu;  // every lane of the warp
 
+constexpr int kRecWords = 16;  // int32 words of a block's record
+
 struct Occ {
-  const int32_t* occ;  // (nb + 1) x 4 checkpoints
-  const uint32_t* pk;  // nb x 4 packed symbols
-  const uint32_t* va;  // nb x 4 validity lanes
+  const int32_t* rec;  // (nb + 1) x kRecWords: occ, pk, va, padding
   const int64_t* C;    // 6 entries
   int64_t primary;
   int64_t n_rows;
@@ -67,51 +71,59 @@ struct Occ {
 constexpr int kMaxShards = 8;  // BASELINE config #4: one host, 8 chips
 
 // The tables split by contiguous 64-symbol block ranges (the layout of
-// ShardedSeedTables in ops/smem_sharded.py): shard k holds the global
-// blocks [blk_origin + k*nb_loc, blk_origin + (k+1)*nb_loc) as nb_loc rows
-// of occ, pk and va, and the sampled-SA entries [k*ns_loc, (k+1)*ns_loc).
+// ShardedSeedTables in ops/smem_sharded.py): shard k holds the records of
+// the global blocks [blk_origin + k*nb_loc, blk_origin + (k+1)*nb_loc),
+// nb_loc records, and the sampled-SA entries [k*ns_loc, (k+1)*ns_loc).
 // Each pointer is a device pointer on its shard's card; a thread reads the
 // owner's memory directly (over NVLink, with peer access, when the owner is
 // another card).  Passed to the kernels by value; every member is 8 bytes
 // wide, so the ctypes mirror in ops/_build.py has no padding to match.
 struct ShardedOcc {
-  const int32_t* occ[kMaxShards];  // nb_loc x 4 checkpoints a shard
-  const uint32_t* pk[kMaxShards];  // nb_loc x 4 packed symbols
-  const uint32_t* va[kMaxShards];  // nb_loc x 4 validity lanes
+  const int32_t* rec[kMaxShards];  // nb_loc x kRecWords a shard
   const int64_t* ssa[kMaxShards];  // ns_loc sampled-SA entries
   int64_t C[6];
   int64_t primary;
   int64_t n_rows;
   int64_t nb_loc;
   int64_t ns_loc;
-  int64_t blk_origin;  // global block of shard 0's first row
+  int64_t blk_origin;  // global block of shard 0's first record
   int64_t n_ssa;
   int64_t sa_intv;
   int64_t n_shards;
 };
 
-// The three rows of global block blk.
+// The three rows of global block blk, in its record.
 struct Block {
   const int32_t* occ;
   const uint32_t* pk;
   const uint32_t* va;
 };
 
-__device__ __forceinline__ Block block_of(const Occ& ix, int64_t blk) {
-  return Block{ix.occ + blk * 4, ix.pk + blk * 4, ix.va + blk * 4};
+__device__ __forceinline__ Block record_rows(const int32_t* rec) {
+  return Block{rec, reinterpret_cast<const uint32_t*>(rec + 4),
+               reinterpret_cast<const uint32_t*>(rec + 8)};
 }
 
-// The owning shard and the local row: the GPU counterpart of the JAX
+__device__ __forceinline__ Block block_of(const Occ& ix, int64_t blk) {
+  return record_rows(ix.rec + blk * kRecWords);
+}
+
+// The shard of entry g of a table split in runs of n_loc over n shards:
+// the number of later shards whose first entry g reaches (compares, not a
+// 64-bit division).
+__device__ __forceinline__ int shard_of(int64_t g, int64_t n_loc,
+                                        int64_t n) {
+  int s = 0;
+  for (int k = 1; k < kMaxShards; ++k) s += k < n && g >= k * n_loc;
+  return s;
+}
+
+// The owning shard and the local record: the GPU counterpart of the JAX
 // module's masked gather and psum (_rank4_partial, smem_sharded.py:186).
-// The shard is the number of later shards whose first block blk reaches:
-// compares, not a 64-bit division.
 __device__ __forceinline__ Block block_of(const ShardedOcc& ix, int64_t blk) {
   const int64_t g = blk - ix.blk_origin;
-  int s = 0;
-  for (int k = 1; k < kMaxShards; ++k)
-    s += k < ix.n_shards && g >= k * ix.nb_loc;
-  const int64_t l = (g - s * ix.nb_loc) * 4;
-  return Block{ix.occ[s] + l, ix.pk[s] + l, ix.va[s] + l};
+  const int s = shard_of(g, ix.nb_loc, ix.n_shards);
+  return record_rows(ix.rec[s] + (g - s * ix.nb_loc) * kRecWords);
 }
 
 // Sampled-SA entry k.
@@ -122,12 +134,12 @@ __device__ __forceinline__ int64_t sample_at(const Occ&, const int64_t* ssa,
 
 __device__ __forceinline__ int64_t sample_at(const ShardedOcc& ix,
                                              const int64_t*, int64_t k) {
-  const int64_t s = k / ix.ns_loc;
+  const int s = shard_of(k, ix.ns_loc, ix.n_shards);
   return ix.ssa[s][k - s * ix.ns_loc];
 }
 
-// The three rows of a block, loaded whole (each row is 4 words, 16-byte
-// aligned).
+// The three rows of a block, loaded whole: three 16-byte loads from one
+// 64-byte record.
 struct BlockRows {
   int4 occ;
   uint4 pk, va;
@@ -375,27 +387,67 @@ __device__ inline Smem1 smem1_warp(const Tab& ix, const uint8_t* q,
   return out;
 }
 
+// One LF step from row r (r != primary) with the rows b of r's block and
+// C[0..4]: C[c] + the count of c in bwt[0:r) where r holds base c, and
+// for an N (validity lane 0) C[4] + the rows before r that are N, less the
+// primary row.  Only what the step needs is counted: the lanes of r's
+// base before r, or every valid lane before r for an N (the four bases'
+// counts summed, as each valid lane holds one base).
+__device__ __forceinline__ int64_t lf_step(const BlockRows& b, int64_t r,
+                                           int64_t primary,
+                                           const int64_t C[5]) {
+  const int off = (int)(r & 63), k = off >> 4, lane = 2 * (off & 15);
+  const uint32_t w[4] = {b.pk.x, b.pk.y, b.pk.z, b.pk.w};
+  const uint32_t v[4] = {b.va.x, b.va.y, b.va.z, b.va.w};
+  const uint32_t wk = k == 0 ? w[0] : k == 1 ? w[1] : k == 2 ? w[2] : w[3];
+  const uint32_t vk = k == 0 ? v[0] : k == 1 ? v[1] : k == 2 ? v[2] : v[3];
+  const int sym = (int)((wk >> lane) & 3u);
+  const bool valid = (vk >> lane) & 1u;
+  const uint32_t pat = 0x55555555u * (uint32_t)sym;
+  int cnt = 0;
+  for (int j = 0; j < 4; ++j) {
+    const int nsym = off - 16 * j;
+    const uint32_t pmask = nsym >= 16 ? 0xFFFFFFFFu
+                           : nsym <= 0 ? 0u
+                                       : ((1u << (2 * nsym)) - 1u);
+    const uint32_t t = ~(w[j] ^ pat);
+    const uint32_t hit = valid ? t & (t >> 1) : 0xFFFFFFFFu;
+    cnt += __popc(hit & 0x55555555u & v[j] & pmask);
+  }
+  if (valid) {
+    const int32_t base = sym == 0 ? b.occ.x : sym == 1 ? b.occ.y
+                         : sym == 2 ? b.occ.z : b.occ.w;
+    return pick(C, sym) + base + cnt;
+  }
+  const int64_t all = (int64_t)b.occ.x + b.occ.y + b.occ.z + b.occ.w + cnt;
+  return C[4] + r - all - (r > primary ? 1 : 0);
+}
+
 // bwt_sa: the text position of SA row r by LF walks until the primary row
 // or a sampled row; 0 if neither comes within max_it steps (never, for
-// a well-formed index).
+// a well-formed index).  sa_shift is log2(sa_intv) when sa_intv is a power
+// of two (a mask and a shift find the sampled rows), -1 otherwise (a
+// division a step); n_ssa covers every row, so the index into the sampled
+// SA is reduced modulo n_ssa only where it reaches n_ssa (as the JAX
+// program's modulo does).  A step reads one record.
 template <class Tab>
 __device__ inline int64_t sa_value_dev(const Tab& ix, const int64_t* ssa,
                                        int64_t n_ssa, int64_t sa_intv,
-                                       int64_t r, int64_t max_it) {
+                                       int sa_shift, int64_t r,
+                                       int64_t max_it) {
+  const int64_t C[5] = {ix.C[0], ix.C[1], ix.C[2], ix.C[3], ix.C[4]};
+  const int64_t primary = ix.primary;
+  const bool pow2 = sa_shift >= 0;
+  const int64_t low = pow2 ? ((int64_t)1 << sa_shift) - 1 : 0;
   for (int64_t d = 0; d < max_it; ++d) {
-    if (r == ix.primary) return d;
-    if (r % sa_intv == 0) return sample_at(ix, ssa, (r / sa_intv) % n_ssa) + d;
-    const Block b = block_of(ix, r >> 6);
-    const int off = (int)(r & 63), lane = 2 * (off & 15);
-    const int sym = (int)((b.pk[off >> 4] >> lane) & 3u);
-    const int vbit = (int)((b.va[off >> 4] >> lane) & 1u);
-    int64_t rk[4];
-    rank4(ix, r, rk);
-    if (vbit)
-      r = ix.C[sym] + rk[sym];
-    else  // an N (the sentinel row is the primary, handled above)
-      r = ix.C[4] + r - (rk[0] + rk[1] + rk[2] + rk[3]) -
-          (r > ix.primary ? 1 : 0);
+    if (r == primary) return d;
+    const bool sampled = pow2 ? (r & low) == 0 : r % sa_intv == 0;
+    if (sampled) {
+      int64_t k = pow2 ? r >> sa_shift : r / sa_intv;
+      if (k >= n_ssa) k %= n_ssa;
+      return sample_at(ix, ssa, k) + d;
+    }
+    r = lf_step(load_rows(block_of(ix, r >> 6)), r, primary, C);
   }
   return 0;
 }

@@ -73,11 +73,11 @@ MAX_SHARDS = 8     # fmseed::kMaxShards
 
 class ShardTable(ctypes.Structure):
     """The ctypes mirror of fmseed::ShardedOcc (csrc/fm_seed.cuh): the
-    device pointers of every shard's tables, then the shared scalars;
-    every member is 8 bytes wide."""
+    device pointers of every shard's block records and sampled SA, then
+    the shared scalars; every member is 8 bytes wide."""
 
     _fields_ = ([(name, ctypes.c_void_p * MAX_SHARDS)
-                 for name in ("occ", "pk", "va", "ssa")]
+                 for name in ("rec", "ssa")]
                 + [("C", ctypes.c_int64 * 6)]
                 + [(name, ctypes.c_int64)
                    for name in ("primary", "n_rows", "nb_loc", "ns_loc",
@@ -88,7 +88,7 @@ class ShardTable(ctypes.Structure):
 def bind_seed(lib: ctypes.CDLL) -> None:
     """The launchers of csrc/fm_seed.cu (also built by the tests with g++)."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    tables = [vp, vp, vp, vp, i64, i64]      # occ, pk, va, C, primary, n_rows
+    tables = [vp, vp, i64, i64]              # rec, C, primary, n_rows
     lib.bwt_smem_all.argtypes = tables + [vp, i32, vp, i64, i64, vp, vp]
     lib.bwt_smem1.argtypes = tables + [vp, i32, vp, vp, vp, vp, i64, vp, vp]
     lib.bwt_sa.argtypes = tables + [vp, i64, i64, vp, i64, i64, vp, vp]

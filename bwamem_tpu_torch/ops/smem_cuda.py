@@ -65,9 +65,8 @@ def _launch(name, dev, d: DeviceOcc, *args) -> None:
     d's tables; raise if the launch failed, count it if not."""
     from bwamem_tpu_torch.ops import _build
 
-    _build.launch(dev, name, d.occ.data_ptr(), d.pk.data_ptr(),
-                  d.va.data_ptr(), d.C.data_ptr(), d.primary, d.n_rows,
-                  *args)
+    _build.launch(dev, name, d.rec.data_ptr(), d.C.data_ptr(), d.primary,
+                  d.n_rows, *args)
     with _count_lock:
         launches[name] += 1
 

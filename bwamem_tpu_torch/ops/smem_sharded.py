@@ -7,10 +7,12 @@ Layout (ShardedSeedTables, as the JAX module's): the occ / pk / va rows
 split by contiguous 64-symbol block ranges, shard k holding the global
 blocks [blk_origin + k*nb_loc, blk_origin + (k+1)*nb_loc); the sampled SA
 splits the same way by index range (ns_loc entries a shard); each shard
-is copied to its device once.  C, the primary row and the read batch are
-the same everywhere.  blk_origin is 0 in production; the tests place a
-small table at a block origin of 2^26 (a 2^32-row offset) to prove the
-routing past 2^31 rows without gigabytes of data.
+is copied to its device once, its three tables interleaved into one
+tensor of 64-byte block records (smem_torch.block_records), the kernels'
+layout, of which occ / pk / va are column views.  C, the primary row and
+the read batch are the same everywhere.  blk_origin is 0 in production;
+the tests place a small table at a block origin of 2^26 (a 2^32-row
+offset) to prove the routing past 2^31 rows without gigabytes of data.
 
 Routing.  The JAX module answers each rank or SA gather with a masked
 gather on every shard and a `psum` over the mesh, then runs the search
@@ -84,9 +86,11 @@ class ShardedSeedTables:
     """The packed occ tables of `po` (a PackedOcc; its occ / pk / va may
     be tensors made on a card) and the sampled SA `ssa` split over
     `devices` (shard k on devices[k]; a device may repeat), each shard a
-    tensor of its own.  ValueError where the JAX module raises: n_rows >>
-    6 >= 2^31, a non-power-of-two sa_intv, n_rows // sa_intv >= 2^31; and
-    for more than MAX_SHARDS devices."""
+    tensor of its own: `rec[k]`, nb_loc block records (zero past the
+    tables' end), and `occ[k]` / `pk[k]` / `va[k]` its column views.
+    ValueError where the JAX module raises: n_rows >> 6 >= 2^31, a
+    non-power-of-two sa_intv, n_rows // sa_intv >= 2^31; and for more than
+    MAX_SHARDS devices."""
 
     def __init__(self, po, ssa, sa_intv: int, devices, blk_origin: int = 0):
         n_rows = int(po.n_rows)
@@ -106,12 +110,15 @@ class ShardedSeedTables:
         self.nb_loc = -(-int(po.occ_rows.shape[0]) // n_dev)
         self.n_ssa = len(ssa)
         self.ns_loc = -(-self.n_ssa // n_dev)
-        self.occ, self.pk, self.va, self.ssa = (
-            [_shard(a, k, n_loc, d) for k, d in enumerate(self.devices)]
-            for a, n_loc in ((po.occ_rows, self.nb_loc),
-                             (po.pk_rows, self.nb_loc),
-                             (po.va_rows, self.nb_loc),
-                             (ssa, self.ns_loc)))
+        self.rec = [smem_torch.block_records(
+            [a[k * self.nb_loc:(k + 1) * self.nb_loc]
+             for a in (po.occ_rows, po.pk_rows, po.va_rows)], d,
+            self.nb_loc)[0] for k, d in enumerate(self.devices)]
+        self.occ, self.pk, self.va = (
+            [rec[:, cols] for rec in self.rec]
+            for cols in smem_torch.REC_COLS)
+        self.ssa = [_shard(ssa, k, self.ns_loc, d)
+                    for k, d in enumerate(self.devices)]
         self.C = np.asarray(po.C, np.int64)
         self.primary = int(po.primary)
         self.n_rows = n_rows
@@ -135,9 +142,7 @@ class ShardedSeedTables:
         if self._table is None:
             t = _build.ShardTable()
             for k in range(len(self.devices)):
-                t.occ[k] = self.occ[k].data_ptr()
-                t.pk[k] = self.pk[k].data_ptr()
-                t.va[k] = self.va[k].data_ptr()
+                t.rec[k] = self.rec[k].data_ptr()
                 t.ssa[k] = self.ssa[k].data_ptr()
             t.C[:] = [int(c) for c in self.C]
             t.primary, t.n_rows = self.primary, self.n_rows

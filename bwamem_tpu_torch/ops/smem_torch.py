@@ -16,7 +16,10 @@ The three functions read the tables only through `d.occ[blk]`,
 unchanged over a DeviceOcc (the whole index on one device) or a
 ShardedOcc (the index split by block range over several devices, the
 plain version of ops/smem_sharded.py's kernels), where each gather goes to
-the owning shard.
+the owning shard.  On the device the three tables are column views of
+one (blocks, REC_WORDS) int32 tensor of block records (`block_records`,
+the kernels' layout): a block's checkpoints and words lie in one 64-byte
+row, so a kernel's rank4 query or LF step reads one line.
 
 `collect_smems_device` / `collect_seeds_device` are the host flow around
 the three programs, shared with the kernel seeder: one first-round call,
@@ -62,18 +65,42 @@ def table_tensor(a, device):
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+REC_WORDS = 16                  # fmseed::kRecWords (csrc/fm_seed.cuh)
+REC_COLS = (slice(0, 4), slice(4, 8), slice(8, 12))   # occ, pk, va
+
+
+def block_records(tables, device, n=None):
+    """The kernels' layout of a PackedOcc's tables: `tables` = (occ, pk,
+    va), each (rows, 4) (numpy or tensors, the words' uint32 held as
+    int32), interleaved into one (n, REC_WORDS) int32 tensor on `device`
+    whose row b is block b's record [occ[b], pk[b], va[b], 0 x 4]; n is
+    the longest table's rows unless given (rows past n are left out, rows
+    a table lacks are 0).  Returns the records and the three tables as
+    column views of them, each with its table's rows (at most n)."""
+    if n is None:
+        n = max(len(a) for a in tables)
+    rec = torch.zeros((n, REC_WORDS), dtype=torch.int32, device=device)
+    views = []
+    for a, cols in zip(tables, REC_COLS):     # one table on the device at once
+        m = min(len(a), n)
+        rec[:m, cols].copy_(table_tensor(a[:m], rec.device))
+        views.append(rec[:m, cols])
+    return rec, views
+
+
 class DeviceOcc:
-    """The packed occ tables of a PackedOcc (index/occ_packed.py) as
-    tensors on `device`: occ (NB+1, 4) int32 checkpoints, pk / va
-    (NB, 4) uint32 words held as int32, C (6,) int64.  The PackedOcc's
-    occ / pk / va may also be tensors already (a table made on the
-    card); its C is a numpy array."""
+    """The packed occ tables of a PackedOcc (index/occ_packed.py) on
+    `device` as one tensor of block records, `rec` ((NB+1, REC_WORDS)
+    int32, block_records), and its column views occ (NB+1, 4) int32
+    checkpoints, pk / va (NB, 4) uint32 words held as int32, each equal
+    to the PackedOcc's table; C (6,) int64.  The PackedOcc's occ / pk /
+    va may also be tensors already (a table made on the card); its C is a
+    numpy array."""
 
     def __init__(self, po, device):
-        self.occ = table_tensor(po.occ_rows, device)
-        self.device = self.occ.device     # with its index: "cuda" -> cuda:0
-        self.pk = table_tensor(po.pk_rows, device)
-        self.va = table_tensor(po.va_rows, device)
+        self.rec, (self.occ, self.pk, self.va) = block_records(
+            (po.occ_rows, po.pk_rows, po.va_rows), device)
+        self.device = self.rec.device     # with its index: "cuda" -> cuda:0
         self.C = table_tensor(np.asarray(po.C, np.int64), device)
         self.primary = int(po.primary)
         self.n_rows = int(po.n_rows)

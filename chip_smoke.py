@@ -40,7 +40,12 @@ Phases, each of which fails the run (exit code 1, no result line):
              kernel timed with its bytes bound and its dependence bound
              (the longest chain of dependent gather rounds of any read or
              row, as the plain version counts them, times the card's time
-             for one step, from one-row bwt_sa walks);
+             for one step, from one-row bwt_sa walks), bwt_sa also with
+             its sector bound (two 32-byte sectors of a block record an
+             LF step); then bwt_sa at chr20 scale: 100,000 walks on a
+             synthetic index of 128,888,335 rows at sa_intv 8 made on the
+             card (its block records 129 MB, twice L2) == plain, timed
+             with both bounds;
   4b. seed-sh the table-sharded seeding kernels (bwt_rank4_sh,
              bwt_smem_all_sh, bwt_smem1_sh, bwt_sa_sh; ops/smem_sharded.py)
              at two scales.  Smoke scale, on phase 4's gate: over
@@ -62,7 +67,9 @@ Phases, each of which fails the run (exit code 1, no result line):
              2^31, 2^32 and n_rows, the SMEM search on 2,048 LF-walk reads
              (some SMEM at a row >= 2^31) and 100,000 SA walks: the
              unsharded kernels and the _sh kernels at n_dev 1 and 4
-             against the plain version; peak device memory logged;
+             against the plain version, the SA walks with their sector and
+             dependence bounds (the `human_scale` entry of bwt_sa and
+             bwt_sa_sh in the kernels line); peak device memory logged;
   4c. sw     the mate-rescue kernel (bwt_local_align6) and the CIGAR
              kernel (bwt_global_cigar) against their plain versions
              (local_torch.align6, global_torch.global_batch) on the same
@@ -188,6 +195,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -649,12 +657,97 @@ def dep_bound(entry, name, rounds, step):
         f"{entry['ms']:.4f} ms")
 
 
+def sa_scale_entry(name, what, ms, st, n_walks, step):
+    """An SA walk kernel's numbers at one scale, logged and returned: its
+    time; the sector bound, 32-byte sectors over 3.35 TB/s: two of the
+    block record an LF step (checkpoints and symbol words in one, validity
+    lanes in the next), one of the sampled SA a walk, and the rows read and
+    positions written (beside it the three separate tables' three sectors a
+    step); and the dependence bound, the longest walk (st["rounds"], the
+    plain version's count) times one step at this scale."""
+    io = (8 + 8 + 32) * n_walks
+    sector_ms = 1e3 * (st["lf"] * 64 + io) / PEAK_BYTES
+    rows_ms = 1e3 * (st["lf"] * 96 + io) / PEAK_BYTES
+    chain = int(st["rounds"].max())
+    log(f"{name} {what}: {ms:.4f} ms; {n_walks} walks, {st['lf']} LF steps "
+        f"-> sector bound {sector_ms:.4f} ms (64 B a step) = "
+        f"{100 * sector_ms / ms:.1f}% (three tables, 96 B a step: "
+        f"{rows_ms:.4f} ms); dependence bound {chain} steps x "
+        f"{step * 1e6:.1f} ns = {chain * step:.4f} ms = "
+        f"{100 * chain * step / ms:.1f}%")
+    return {"ms": ms, "sector_bound_ms": sector_ms, "dep_bound_ms":
+            chain * step, "dep_chain": chain, "step_ns": step * 1e6}
+
+
+def walk_rows(d, ssa, sa_intv, n, rng):
+    """n rows of the table d (on the card) whose SA walks end within 256
+    steps (chosen by the plain version), as an int64 tensor."""
+    import torch
+
+    from bwamem_tpu_torch.ops import smem_torch
+
+    cand = torch.from_numpy(rng.integers(0, d.n_rows, n + n // 5)).to(
+        d.device)
+    _, done = smem_torch.sa_walk(d, ssa, sa_intv, cand, max_it=256)
+    rows = cand[done][:n].contiguous()
+    if len(rows) < n:
+        fail(f"only {len(rows)} of {len(cand)} SA walks end within 256 "
+             f"steps")
+    return rows
+
+
+CHR20_N_ROWS = 128_888_335   # human chr20 (GRCh38, 64,444,167 bp), two strands
+CHR20_PRIMARY = 100_000_007
+CHR20_SA_INTV = 8            # the port's `index` default
+SA_WALKS = 100_000
+
+
+def phase_seed_chr20(dev, rng):
+    """bwt_sa at human chr20 scale, the largest index `mem --device-seed`
+    takes (under 2^31 rows) whose tables outgrow L2: a synthetic table of
+    CHR20_N_ROWS rows at sa_intv 8 made on the card (human_scale_tables;
+    its block records 129 MB, the sampled SA as much), SA_WALKS walks that
+    end within 256 steps == the plain version, timed with both bounds.
+    Returns the `chr20_scale` entry of bwt_sa."""
+    import torch
+
+    from bwamem_tpu_torch.ops import smem_cuda, smem_torch
+
+    t0 = time.time()
+    po, ssa = human_scale_tables(dev, 9, CHR20_N_ROWS, CHR20_PRIMARY,
+                                 CHR20_SA_INTV)
+    d = smem_torch.DeviceOcc(po, dev)
+    del po
+    rows = walk_rows(d, ssa, CHR20_SA_INTV, SA_WALKS, rng)
+    got = smem_cuda.sa(d, ssa, CHR20_SA_INTV, rows)
+    torch.cuda.synchronize()
+    st = {}
+    want, plain_ms = timed_once(
+        lambda: smem_torch.sa_batch(d, ssa, CHR20_SA_INTV, rows, st))
+    if not torch.equal(got, want):
+        bad = (got != want).nonzero()[:5, 0].tolist()
+        fail(f"bwt_sa != plain at chr20 scale: first rows {bad}")
+    ms = cuda_ms(lambda: smem_cuda.sa(d, ssa, CHR20_SA_INTV, rows), 20)
+    step = step_ms(lambda k: smem_cuda.sa(d, ssa, CHR20_SA_INTV,
+                                          rows[k:k + 1]),
+                   st["rounds"], "bwt_sa at chr20 scale")
+    log(f"bwt_sa == plain at chr20 scale: {CHR20_N_ROWS} rows, sa_intv "
+        f"{CHR20_SA_INTV}, records {d.rec.numel() * 4 / 1e6:.1f} MB, "
+        f"{SA_WALKS} walks (plain PyTorch {plain_ms:.1f} ms; "
+        f"{time.time() - t0:.1f}s)")
+    entry = sa_scale_entry("bwt_sa", "at chr20 scale", ms, st, SA_WALKS,
+                           step)
+    del d, ssa, rows, got, want
+    torch.cuda.empty_cache()
+    return {"rows": CHR20_N_ROWS, **entry}
+
+
 def phase_seed_kernels(dev):
     """The seeding kernels (bwt_smem_all, bwt_smem1, bwt_sa) against their
     plain versions on the card, exactly, on the gate batch over the smoke
     genome plus the overflow contig; the kernel seeder's rows against the
     C++ engine's; each kernel timed with its bytes bound and its
-    dependence bound."""
+    dependence bound; bwt_sa also at chr20 scale (phase_seed_chr20)."""
     import torch
 
     import _torch_gate as gate
@@ -773,6 +866,11 @@ def phase_seed_kernels(dev):
                    st["rounds"], "bwt_sa on the gate's seed rows")
     for name, r in rounds.items():
         dep_bound(timing[name], name, r, step)
+    sa_scale_entry("bwt_sa", "at smoke scale", timing["bwt_sa"]["ms"], st,
+                   len(sa_rows), step)
+    del d, progs, seed_fn
+    torch.cuda.empty_cache()
+    timing["bwt_sa"]["chr20_scale"] = phase_seed_chr20(dev, rng)
     return timing, (fm, po, reads, sa_rows)
 
 
@@ -808,27 +906,25 @@ def clear_lanes(words, lanes):
         words[blk] = torch.from_numpy(w.view(np.int32)).to(words.device)
 
 
-def human_scale_tables(dev, seed=8):
-    """A synthetic packed index of SH_N_ROWS rows made on the card from a
-    seeded torch.Generator: random 2-bit symbols, every lane valid but the
-    primary row's (placed above 2^32) and the padding past n_rows, the
+def human_scale_tables(dev, seed=8, n=SH_N_ROWS, primary=SH_PRIMARY,
+                       sa_intv=SH_SA_INTV):
+    """A synthetic packed index of n rows (SH_N_ROWS unless given) made on
+    the card from a seeded torch.Generator: random 2-bit symbols, every
+    lane valid but the primary row's (SH_PRIMARY, above 2^32, unless
+    given) and the padding past n_rows, the
     checkpoints by an int64 cumulative sum of per-block counts (each
     per-symbol count checked under 2^31 before it becomes int32, as
     pack_occ checks), C from the totals, symbols 0 and 3 swapped where
     needed so that count(0) <= count(3) (a two-strand index has them equal;
     the bi-intervals of the search then stay inside the table), and a
-    random sampled SA every SH_SA_INTV rows.  It is not the BWT of a text,
+    random sampled SA every sa_intv rows.  It is not the BWT of a text,
     but an LF walk from any row is a path of the table.  Returns (a
     PackedOcc-like namespace of the tables, the sampled SA)."""
-    import types
-
     import torch
 
-    n = SH_N_ROWS
     nb = -(-n // 64)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
-    primary = SH_PRIMARY
     pk = torch.empty((nb + 1, 4), dtype=torch.int32, device=dev)
     raw = pk.view(torch.uint8).view(-1)
     step = 1 << 28
@@ -880,7 +976,7 @@ def human_scale_tables(dev, seed=8):
     C[0] = 1
     C[1:5] = 1 + np.cumsum(tot)
     C[5] = C[4]
-    n_ssa = -(-n // SH_SA_INTV)
+    n_ssa = -(-n // sa_intv)
     ssa = torch.randint(0, n, (n_ssa,), dtype=torch.int64, generator=g,
                         device=dev)
     po = types.SimpleNamespace(occ_rows=occ, pk_rows=pk, va_rows=va, C=C,
@@ -1086,6 +1182,9 @@ def phase_seed_sharded(dev, seed_gate):
                 sts["bwt_sa_sh"]["rounds"], f"bwt_sa_sh at n_dev {len(devs)}")
             for name in ("bwt_smem_all_sh", "bwt_smem1_sh", "bwt_sa_sh"):
                 dep_bound(timing[name], name, sts[name]["rounds"], step)
+            sa_scale_entry("bwt_sa_sh", f"at n_dev {len(devs)}, smoke scale",
+                           timing["bwt_sa_sh"]["ms"], sts["bwt_sa_sh"],
+                           len(sa_rows), step)
         log(f"_sh kernels over {[str(x) for x in devs]} == plain == the "
             f"unsharded kernels on the {B}-read gate (rank4 on "
             f"{len(rows4)} rows, SA walks on {len(sa_rows)} rows)")
@@ -1191,6 +1290,12 @@ def phase_seed_sharded(dev, seed_gate):
     hpo, hssa = human_scale_tables(dev)
     torch.cuda.synchronize()
     hd = smem_torch.DeviceOcc(hpo, dev)
+    # the shards below are cut from the records' views: the three tables
+    # human_scale_tables made go
+    hpo = types.SimpleNamespace(occ_rows=hd.occ, pk_rows=hd.pk,
+                                va_rows=hd.va, C=hpo.C, primary=hpo.primary,
+                                n_rows=hpo.n_rows)
+    torch.cuda.empty_cache()
     gib = torch.cuda.memory_allocated(dev) / 2**30
     log(f"human-scale index: {SH_N_ROWS} rows, sa_intv {SH_SA_INTV}, primary "
         f"row {hpo.primary}, C {hpo.C.tolist()}; tables {gib:.2f} GiB on the "
@@ -1207,11 +1312,7 @@ def phase_seed_sharded(dev, seed_gate):
     ht = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
           for k, v in (("q", hq), ("ql", hql), ("x", hx), ("mi", hmi),
                        ("mask", hmask))}
-    cand = torch.from_numpy(rng.integers(0, SH_N_ROWS, 120_000)).to(dev)
-    _, done = smem_torch.sa_walk(hd, hssa, SH_SA_INTV, cand, max_it=256)
-    hsa = cand[done][:100_000].contiguous()
-    if len(hsa) < 100_000:
-        fail(f"only {len(hsa)} of {len(cand)} SA walks end within 256 steps")
+    hsa = walk_rows(hd, hssa, SH_SA_INTV, SA_WALKS, rng)
     x_eff = torch.where(ht["mask"].bool(), ht["x"], ht["ql"])
     plain = {}
     st = {}
@@ -1245,18 +1346,23 @@ def phase_seed_sharded(dev, seed_gate):
                                                 ht["x"], ht["mi"],
                                                 ht["mask"]),
         "bwt_sa_sh": lambda: smem_cuda.sa(hd, hssa, SH_SA_INTV, hsa)}
+    unsh_ms = {}
     for name, fn in unsh.items():
         got = fn()
         torch.cuda.synchronize()
         same(name, got, plain[name], "plain (unsharded kernel, human scale)")
+        unsh_ms[name] = cuda_ms(fn, 5)
         log(f"{name[:-3]} (unsharded kernel on the 6.2 G-row table) == "
-            f"plain: {cuda_ms(fn, 5):.3f} ms")
+            f"plain: {unsh_ms[name]:.3f} ms")
     stats = {"bwt_rank4_sh": {"rank4": len(hrows)},
              "bwt_smem_all_sh": st_all, "bwt_smem1_sh": st_1,
              "bwt_sa_sh": st_sa}
     step_h = step_ms(lambda k: smem_cuda.sa(hd, hssa, SH_SA_INTV,
                                             hsa[k:k + 1]),
                      st_sa["rounds"], "bwt_sa on the 6.2 G-row table")
+    human = {"bwt_sa": {"rows": SH_N_ROWS, **sa_scale_entry(
+        "bwt_sa", "on the 6.2 G-row table", unsh_ms["bwt_sa_sh"], st_sa,
+        len(hsa), step_h)}}
     in_bytes = {"bwt_rank4_sh": 8 * len(hrows),
                 "bwt_smem_all_sh": hq.nbytes + hql.nbytes,
                 "bwt_smem1_sh": hq.nbytes + hql.nbytes + hx.nbytes
@@ -1288,6 +1394,11 @@ def phase_seed_sharded(dev, seed_gate):
             if "rounds" in stats[name]:
                 dep_bound({"ms": ms}, f"{name} at n_dev {n}, 6.2 G rows",
                           stats[name]["rounds"], step_h)
+            if name == "bwt_sa_sh":
+                human[name] = {"rows": SH_N_ROWS, "n_dev": n,
+                               **sa_scale_entry(
+                                   name, f"at n_dev {n} on the 6.2 G-row "
+                                   f"table", ms, st_sa, len(hsa), step_h)}
         del tabs, v, kernels
         torch.cuda.empty_cache()
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -1295,9 +1406,11 @@ def phase_seed_sharded(dev, seed_gate):
         f"across 2^31, 2^32 and n_rows), the SMEM search ({SEED_B} LF-walk "
         f"reads) and the SA walks ({len(hsa)} rows); peak device memory "
         f"{peak:.2f} GiB (torch.cuda.max_memory_allocated)")
-    del hpo, hssa, hd, plain, hrows, ht, cand, hsa
+    del hpo, hssa, hd, plain, hrows, ht, hsa
     torch.cuda.empty_cache()
     log(f"seed-sh phase: {time.time() - t_phase:.1f}s")
+    for name, entry in human.items():
+        timing.setdefault(name, {})["human_scale"] = entry
     return timing, launches
 
 
@@ -2704,6 +2817,8 @@ def main() -> int:
     phase_kernel_i16_rows(dev)
     timing_seed, seed_gate = phase_seed_kernels(dev)
     timing_sh, sh_launches = phase_seed_sharded(dev, seed_gate)
+    timing_seed["bwt_sa"]["human_scale"] = timing_sh.pop("bwt_sa")[
+        "human_scale"]
     timing_sw = phase_sw_kernels(dev)
     if "--kernels-only" in sys.argv[1:]:
         print(json.dumps({"kernels": [timing, timing_t, timing_i16,

@@ -42,22 +42,24 @@ listed as "against:DIR".  Say
 to time a parent commit's kernels beside the committed ones.
 
 With `--seed`, it times the seeding kernels instead (bwt_smem_all,
-bwt_smem1, bwt_sa of csrc/fm_seed.cu on chip_smoke.py's phase-4 gate, and
-the table-sharded bwt_smem_all_sh, bwt_smem1_sh, bwt_sa_sh over the same
-gate's tables split over [cuda:0] * 4), as committed and in each `--against`
-DIR, in turns (committed, against, ..., then the reverse order), every
-output checked against the committed build's.  Say
+bwt_smem1, bwt_sa and the table-sharded bwt_rank4_sh, bwt_smem_all_sh,
+bwt_smem1_sh, bwt_sa_sh of csrc/fm_seed.cu), as committed and in each
+`--against` DIR, in turns (committed, against, ..., then the reverse
+order, a sleep kernel queued before each run of launches), every output
+checked against the committed build's and the committed build's against
+the plain version, at three scales: chip_smoke.py's phase-4 gate (the _sh
+kernels over its tables split in four), a chr20-scale index (128,888,335
+rows at sa_intv 8, the one-table kernels) and chip_smoke.py's synthetic
+6.2 G-row index (the _sh kernels at n_dev 1 and 4 too).  Each line gives
+the bytes bound, the sector bound of each table layout and each build's
+dependence bound.  A DIR whose kernels read the occ, pk and va tables
+apart (before the 64-byte block records of fm_seed.cuh) is given them
+so, beside the records, both on the card.  Say
 
-    git archive e071fb8 bwamem_tpu_torch/csrc | tar -x -C _archive/parent
+    git archive d8ea2cc bwamem_tpu_torch/csrc | tar -x -C _archive/parent
     python3 chip_tune.py --seed --against _archive/parent/bwamem_tpu_torch/csrc
 
 to time a parent commit's seeding kernels beside the committed ones.
-
-`--seed` also times the bare bwt_rank4_sh launch (its output made
-beforehand, a sleep kernel queued first so the host's time between
-launches does not count) on 100,003 rows of the phase-4 gate's tables
-split in four and on 1,000,000 rows of chip_smoke.py's synthetic 6.2 G-row
-index (one shard and four), with its bytes bound.
 
 With `--sw`, it times the CIGAR kernel (bwt_global_cigar of
 csrc/global_sw.cu) instead, as committed and in each `--against` DIR, in
@@ -88,6 +90,7 @@ experiment favoured.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import re
@@ -114,6 +117,7 @@ TABLES = {
 B = 8192
 MEM_SE = 8192   # chip_smoke.py's 16-bit path: its first 8,192 SE reads
 MEM_LANES = (16384, 32768)  # its launches joined: as a larger -b makes
+MIN_SEED = 19    # MemOptions().min_seed_len: -k of the seeding kernels timed
 
 
 def with_table(src, dst, table):
@@ -196,23 +200,303 @@ def reads_like_batch(rng):
     return ql, tl, qr, tr, scal
 
 
-def time_seed_kernels(libs, dev):
-    """The seeding kernels of each library on chip_smoke.py's phase-4 gate
-    (2,048 reads over the smoke genome and the overflow contig; bwt_smem1
-    at random x / min_intv / mask; bwt_sa on the gate's seed rows; the
-    _sh twins of the first two over the tables split in four), three
-    rounds of turns, 20 launches a time."""
-    import ctypes
+def seed_layout(csrc):
+    """How the seeding kernels of the sources in `csrc` take the index:
+    "records" (one 64-byte record a block, csrc/fm_seed.cuh's kRecWords)
+    or "rows" (the occ, pk and va tables apart, as before the records)."""
+    with open(os.path.join(csrc, "fm_seed.cuh")) as f:
+        return "records" if "kRecWords" in f.read() else "rows"
 
+
+class RowsShardTable(ctypes.Structure):
+    """fmseed::ShardedOcc of sources of the "rows" layout: the occ, pk,
+    va and sampled-SA pointers of each of 8 shards, then the scalars."""
+
+    _fields_ = ([(name, ctypes.c_void_p * 8)
+                 for name in ("occ", "pk", "va", "ssa")]
+                + [("C", ctypes.c_int64 * 6)]
+                + [(name, ctypes.c_int64)
+                   for name in ("primary", "n_rows", "nb_loc", "ns_loc",
+                                "blk_origin", "n_ssa", "sa_intv",
+                                "n_shards")])
+
+
+def bind_rows_seed(lib):
+    """The seeding launchers' types in a library of the "rows" layout."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    tables = [vp, vp, vp, vp, i64, i64]      # occ, pk, va, C, primary, n_rows
+    lib.bwt_smem_all.argtypes = tables + [vp, i32, vp, i64, i64, vp, vp]
+    lib.bwt_smem1.argtypes = tables + [vp, i32, vp, vp, vp, vp, i64, vp, vp]
+    lib.bwt_sa.argtypes = tables + [vp, i64, i64, vp, i64, i64, vp, vp]
+    tab = ctypes.POINTER(RowsShardTable)
+    lib.bwt_rank4_sh.argtypes = [tab, vp, i64, vp, vp]
+    lib.bwt_smem_all_sh.argtypes = [tab, vp, i32, vp, i64, i64, vp, vp]
+    lib.bwt_smem1_sh.argtypes = [tab, vp, i32, vp, vp, vp, vp, i64, vp, vp]
+    lib.bwt_sa_sh.argtypes = [tab, vp, i64, i64, vp, vp]
+
+
+class SeedIndex:
+    """One index on the card as both layouts take it: `d`, a
+    smem_torch.DeviceOcc (the block records, whose views the plain version
+    reads), and for "rows" builds the three tables whole and contiguous
+    (po's own tensors where they are on the card already), the sampled SA
+    `ssa`, and each layout's shard table at n shards of [dev] * n (the
+    "rows" shards are pointers into the whole tables)."""
+
+    def __init__(self, po, ssa, sa_intv, dev, layouts):
+        import torch
+
+        from bwamem_tpu_torch.ops import smem_torch
+
+        self.po, self.sa_intv, self.dev = po, int(sa_intv), dev
+        self.d = smem_torch.DeviceOcc(po, dev)
+        self.ssa = (ssa.to(dev) if isinstance(ssa, torch.Tensor)
+                    else torch.from_numpy(np.asarray(ssa, np.int64)).to(dev))
+        self.rows = ([smem_torch.table_tensor(a, dev).contiguous()
+                      for a in (po.occ_rows, po.pk_rows, po.va_rows)]
+                     if "rows" in layouts else None)
+        self.max_it = smem_torch.sa_max_it(self.d.n_rows)
+        self._sh = {}
+
+    def tables(self, layout):
+        d = self.d
+        ptrs = ([d.rec.data_ptr()] if layout == "records"
+                else [t.data_ptr() for t in self.rows])
+        return (*ptrs, d.C.data_ptr(), d.primary, d.n_rows)
+
+    def shard_table(self, layout, n):
+        from bwamem_tpu_torch.ops import smem_sharded
+
+        if (layout, n) in self._sh:
+            return self._sh[layout, n][0]
+        if layout == "records":
+            tabs = smem_sharded.ShardedSeedTables(self.po, self.ssa,
+                                                  self.sa_intv,
+                                                  [self.dev] * n)
+            self._sh[layout, n] = (tabs.shard_table(), tabs)
+            return self._sh[layout, n][0]
+        t = RowsShardTable()
+        nb_loc = -(-len(self.rows[0]) // n)
+        ns_loc = -(-len(self.ssa) // n)
+        for k in range(n):
+            t.occ[k], t.pk[k], t.va[k] = (x.data_ptr() + 16 * k * nb_loc
+                                          for x in self.rows)
+            t.ssa[k] = self.ssa.data_ptr() + 8 * k * ns_loc
+        t.C[:] = [int(c) for c in self.d.C.tolist()]
+        t.primary, t.n_rows = self.d.primary, self.d.n_rows
+        t.nb_loc, t.ns_loc, t.blk_origin = nb_loc, ns_loc, 0
+        t.n_ssa, t.sa_intv, t.n_shards = len(self.ssa), self.sa_intv, n
+        self._sh[layout, n] = (t, None)
+        return t
+
+    def drop_shards(self):
+        import torch
+
+        self._sh.clear()
+        torch.cuda.empty_cache()
+
+
+def seed_launch(lib, layout, ix, name, ins, n_dev=1):
+    """Launch the seeding kernel `name` of `lib` (its layout `layout`)
+    over the index ix on the inputs `ins` (q, ql, x, mi, mask, sa, rows4
+    on the card); the _sh kernels over n_dev shards.  Returns the output."""
+    import torch
+
+    from bwamem_tpu_torch.ops import smem_torch
+
+    dev = ix.dev
+    stream = torch.cuda.current_stream().cuda_stream
+    sh = name.endswith("_sh")
+    head = (ctypes.byref(ix.shard_table(layout, n_dev)),) if sh \
+        else ix.tables(layout)
+    base = name[:-3] if sh else name
+    if base == "bwt_smem_all":
+        q, ql = ins["q"], ins["ql"]
+        out = torch.empty((len(q), smem_torch.ALL_COLS), dtype=torch.int64,
+                          device=dev)
+        args = (q.data_ptr(), q.shape[1], ql.data_ptr(), len(q), MIN_SEED,
+                out.data_ptr())
+    elif base == "bwt_smem1":
+        q = ins["q"]
+        out = torch.empty((len(q), smem_torch.SMEM1_COLS),
+                          dtype=torch.int64, device=dev)
+        args = (q.data_ptr(), q.shape[1], ins["ql"].data_ptr(),
+                ins["x"].data_ptr(), ins["mi"].data_ptr(),
+                ins["mask"].data_ptr(), len(q), out.data_ptr())
+    elif base == "bwt_sa":
+        rows = ins["sa"]
+        out = torch.empty(len(rows), dtype=torch.int64, device=dev)
+        args = ((rows.data_ptr(), len(rows), ix.max_it, out.data_ptr())
+                if sh else (ix.ssa.data_ptr(), len(ix.ssa), ix.sa_intv,
+                            rows.data_ptr(), len(rows), ix.max_it,
+                            out.data_ptr()))
+    else:                                   # bwt_rank4_sh
+        rows = ins["rows4"]
+        out = torch.empty((len(rows), 4), dtype=torch.int64, device=dev)
+        args = (rows.data_ptr(), len(rows), out.data_ptr())
+    rc = getattr(lib, name)(*head, *args, stream)
+    if rc != 0:
+        sys.exit(f"{name} launch failed: {rc}")
+    return out
+
+
+
+def seed_plain(ix, name, ins):
+    """The plain version's output and counts (rank4 queries, LF steps,
+    each read's or row's chain) for the kernel `name`."""
+    import torch
+
+    from bwamem_tpu_torch.ops import smem_torch
+
+    d, st = ix.d, {}
+    base = name[:-3] if name.endswith("_sh") else name
+    if base == "bwt_smem_all":
+        out = smem_torch.smem_all(d, ins["q"], ins["ql"], MIN_SEED, st)
+    elif base == "bwt_smem1":
+        x_eff = torch.where(ins["mask"].bool(), ins["x"], ins["ql"])
+        out = smem_torch.pack_smem1(smem_torch.smem1(
+            d, ins["q"], ins["ql"], x_eff, ins["mi"], st))
+    elif base == "bwt_sa":
+        out = smem_torch.sa_batch(d, ix.ssa, ix.sa_intv, ins["sa"], st)
+    else:
+        out = smem_torch.rank4(d, ins["rows4"])
+        st = {"rank4": len(ins["rows4"])}
+    return out, st
+
+
+def time_seed_scale(libs, layouts, ix, what, ins, kernels):
+    """Each kernel of `kernels` ((name, n_dev), ...) of every build over
+    ix, in turns (three rounds, the order reversed each round, 20
+    launches a time behind a sleep kernel, so the host's time between
+    launches does not count), every output == the committed build's, the
+    committed build's == the plain version's (for bwt_smem_all the slots
+    of reads that overflowed are not compared, as chip_smoke.py's phase 4
+    does); each line with the bounds: the bytes bound of chip_smoke.py
+    (48 B a rank4 query, 8 B an LF step, inputs and outputs), the sector
+    bound of each layout (32-byte sectors: 2 a query or LF step for a
+    record, 3 for the three tables, one of the sampled SA a walk), and each
+    build's dependence bound (the longest chain, as the plain version
+    counts it, x one step of that build: chip_smoke.step_ms's one-row
+    walks of its bwt_sa or bwt_sa_sh)."""
+    import torch
+
+    import chip_smoke as cs
+
+    names = list(libs)
+    steps = {}
+    in_bytes = {"bwt_smem_all": ("q", "ql"),
+                "bwt_smem1": ("q", "ql", "x", "mi", "mask"),
+                "bwt_sa": ("sa",), "bwt_rank4": ("rows4",)}
+    for name, n_dev in kernels:
+        base = name[:-3] if name.endswith("_sh") else name
+        want = seed_launch(libs["committed"], layouts["committed"], ix,
+                           name, ins, n_dev)
+        plain, st = seed_plain(ix, name, ins)
+        torch.cuda.synchronize()
+        if base == "bwt_smem_all":
+            ok = plain[:, 1] == 0
+            good = torch.equal(want[:, :2], plain[:, :2]) and torch.equal(
+                want[ok], plain[ok])
+        else:
+            good = torch.equal(want, plain)
+        if not good:
+            sys.exit(f"{name} on {what}: committed != plain")
+        times = {n: [] for n in names}
+        for k in range(3):
+            for n in (names if k % 2 == 0 else names[::-1]):
+                def run():
+                    return seed_launch(libs[n], layouts[n], ix, name, ins,
+                                       n_dev)
+                if not torch.equal(run(), want):
+                    sys.exit(f"{name} on {what}: {n} != committed")
+                times[n].append(round(cs.cuda_ms(run, 20, 4_000_000), 5))
+        io = sum(ins[k].numel() * ins[k].element_size()
+                 for k in in_bytes[base]) + 8 * want.numel()
+        bytes_ms = cs.seed_bound(st, io)[0]
+        walks = len(ins["sa"]) if base == "bwt_sa" else 0
+        reads = st.get("lf", 0) or st.get("rank4", 0)   # records read
+        sector = {lay: round(1e3 * (reads * 32 * sec + 32 * walks + io)
+                             / cs.PEAK_BYTES, 5)
+                  for lay, sec in (("records", 2), ("rows", 3))}
+        line = (f"{name}{f' n_dev {n_dev}' if name.endswith('_sh') else ''}"
+                f" on {what}: ms by build {json.dumps(times)}; bytes bound "
+                f"{bytes_ms:.5f} ms; sector bound by layout "
+                f"{json.dumps(sector)}")
+        if "rounds" in st:
+            rounds = st["rounds"]
+            chain = int(rounds.max())
+            sa_name = "bwt_sa_sh" if name.endswith("_sh") else "bwt_sa"
+            dep = {}
+            for n in names:
+                if (n, sa_name, n_dev) not in steps:
+                    steps[n, sa_name, n_dev] = cs.step_ms(
+                        lambda k, n=n: seed_launch(
+                            libs[n], layouts[n], ix, sa_name,
+                            {"sa": ins["sa"][k:k + 1]}, n_dev),
+                        ins["sa_rounds"], f"{n}'s {sa_name} on {what}")
+                dep[n] = round(chain * steps[n, sa_name, n_dev], 5)
+            line += (f"; dependence bound ({chain} steps) by build "
+                     f"{json.dumps(dep)}")
+        print(line, flush=True)
+
+
+def seed_inputs(ix, dev, rng, reads=None, n_rows4=1_000_000, edges=(),
+                sa_rows=None):
+    """The inputs of every seeding kernel over ix on the card: reads (the
+    given (mat, qlen), else SEED_B LF-walk reads of chip_smoke.py) with a
+    random x / min_intv / mask for bwt_smem1, SA rows (the given ones,
+    else SA_WALKS rows whose walks end within 256 steps) and their chains,
+    rank4 rows (the `edges`, then random rows)."""
+    import torch
+
+    import chip_smoke as cs
+    from bwamem_tpu_torch.ops import smem_torch
+
+    mat, qlen = reads if reads is not None else cs.lf_walk_reads(
+        ix.d, cs.SEED_B, cs.READ_LEN, rng)
+    B = len(mat)
+    x = rng.integers(0, np.maximum(qlen, 1))
+    mi = rng.choice([1, 2, 5], B)
+    mask = (rng.random(B) < 0.9).astype(np.uint8)
+    rows4 = np.concatenate([*edges, rng.integers(0, ix.d.n_rows + 1,
+                                                  n_rows4)])[:n_rows4]
+    ins = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+           for k, v in (("q", mat), ("ql", qlen), ("x", x), ("mi", mi),
+                        ("mask", mask), ("rows4", rows4.astype(np.int64)))}
+    ins["sa"] = (cs.walk_rows(ix.d, ix.ssa, ix.sa_intv, cs.SA_WALKS, rng)
+                 if sa_rows is None else torch.from_numpy(sa_rows).to(dev))
+    st = {}
+    smem_torch.sa_batch(ix.d, ix.ssa, ix.sa_intv, ins["sa"], st)
+    ins["sa_rounds"] = st["rounds"]
+    return ins
+
+
+def time_seed_kernels(libs, layouts, dev):
+    """The seeding kernels of each build at three scales, in turns
+    (time_seed_scale): chip_smoke.py's phase-4 gate (2,048 reads over the
+    smoke genome and the overflow contig, SA_WALKS rows of it; the _sh
+    kernels over the tables split in four); a chr20-scale index (the
+    one-table kernels; chip_smoke.phase_seed_chr20's table: 128,888,335
+    rows at sa_intv 8, its records twice L2); and chip_smoke.py's
+    synthetic 6.2 G-row index (the one-table kernels and the _sh kernels
+    at n_dev 1 and 4).  Both layouts of each index are on the card when a
+    build of the "rows" layout is timed."""
     import torch
 
     import _torch_gate as gate
     import chip_smoke as cs
-    from bwamem_tpu_torch.config import MemOptions
     from bwamem_tpu_torch.index.build import build_index
     from bwamem_tpu_torch.index.occ_packed import pack_occ
-    from bwamem_tpu_torch.ops import smem_cuda, smem_sharded, smem_torch
 
+    from bwamem_tpu_torch.config import MemOptions
+    from bwamem_tpu_torch.ops import smem_cuda, smem_torch
+
+    def sharded(n):
+        return [(name, n) for name in ("bwt_rank4_sh", "bwt_smem_all_sh",
+                                       "bwt_smem1_sh", "bwt_sa_sh")]
+
+    one = [("bwt_smem_all", 1), ("bwt_smem1", 1), ("bwt_sa", 1)]
+    opt = MemOptions()
     genome = np.random.default_rng(0).integers(0, 4, cs.GENOME_BP)
     rng = np.random.default_rng(5)
     hp, rep = gate.overflow_contig(rng)
@@ -221,140 +505,42 @@ def time_seed_kernels(libs, dev):
     reads = gate.seed_gate_reads(rng, genome, hp, rep, cs.SEED_B,
                                  cs.READ_LEN)
     mat, qlen = gate.read_matrix(reads)
-    B, L = mat.shape
-    x = rng.integers(0, np.maximum(qlen, 1))
-    x[:2] = 0
-    mi = rng.choice([1, 2, 5], B)
-    mask = (rng.random(B) < 0.9).astype(np.uint8)
-    opt = MemOptions()
-    d = smem_torch.DeviceOcc(po, dev)
-    progs = smem_cuda.Programs(d, fm.ssa, fm.sa_intv)
+    lays = set(layouts.values())
+    ix = SeedIndex(po, fm.ssa, fm.sa_intv, dev, lays)
+    # bwt_sa on the gate's seed rows, as chip_smoke.py's phase 4
+    progs = smem_cuda.Programs(ix.d, fm.ssa, fm.sa_intv)
     mems = smem_torch.collect_smems_device(
-        progs, fm, reads, opt.min_seed_len, smem_torch.split_len_of(opt),
+        progs, fm, reads, MIN_SEED, smem_torch.split_len_of(opt),
         opt.split_width)
     _, sa_rows = smem_torch.occurrences(mems, opt.max_occ)
-    q, ql, xd, mid, maskd, rows = (torch.from_numpy(
-        np.ascontiguousarray(a)).to(dev) for a in (mat, qlen, x, mi, mask,
-                                                    sa_rows))
-    tables = (d.occ.data_ptr(), d.pk.data_ptr(), d.va.data_ptr(),
-              d.C.data_ptr(), d.primary, d.n_rows)
-    stream = torch.cuda.current_stream().cuda_stream
-    shards = smem_sharded.ShardedSeedTables(po, fm.ssa, fm.sa_intv,
-                                            [dev] * 4)
-    sh = ctypes.byref(shards.shard_table())
-
-    def launch(lib, name):
-        if name.startswith("bwt_smem_all"):
-            out = torch.empty((B, smem_torch.ALL_COLS), dtype=torch.int64,
-                              device=dev)
-            args = (q.data_ptr(), L, ql.data_ptr(), B, opt.min_seed_len,
-                    out.data_ptr(), stream)
-            rc = (lib.bwt_smem_all_sh(sh, *args) if name.endswith("_sh")
-                  else lib.bwt_smem_all(*tables, *args))
-        elif name.startswith("bwt_smem1"):
-            out = torch.empty((B, smem_torch.SMEM1_COLS), dtype=torch.int64,
-                              device=dev)
-            args = (q.data_ptr(), L, ql.data_ptr(), xd.data_ptr(),
-                    mid.data_ptr(), maskd.data_ptr(), B, out.data_ptr(),
-                    stream)
-            rc = (lib.bwt_smem1_sh(sh, *args) if name.endswith("_sh")
-                  else lib.bwt_smem1(*tables, *args))
-        elif name == "bwt_sa_sh":
-            out = torch.empty(len(rows), dtype=torch.int64, device=dev)
-            rc = lib.bwt_sa_sh(sh, rows.data_ptr(), len(rows),
-                               smem_torch.sa_max_it(d.n_rows),
-                               out.data_ptr(), stream)
-        else:
-            out = torch.empty(len(rows), dtype=torch.int64, device=dev)
-            rc = lib.bwt_sa(*tables, progs.ssa.data_ptr(), len(progs.ssa),
-                            fm.sa_intv, rows.data_ptr(), len(rows),
-                            smem_torch.sa_max_it(d.n_rows), out.data_ptr(),
-                            stream)
-        if rc != 0:
-            sys.exit(f"{name} launch failed: {rc}")
-        return out
-
-    names = list(libs)
-    for name in ("bwt_smem_all", "bwt_smem1", "bwt_sa", "bwt_smem_all_sh",
-                 "bwt_smem1_sh", "bwt_sa_sh"):
-        want = launch(libs["committed"], name)
-        times = {n: [] for n in names}
-        for k in range(3):
-            for n in (names if k % 2 == 0 else names[::-1]):
-                if not torch.equal(launch(libs[n], name), want):
-                    sys.exit(f"{name}: {n} != committed")
-                times[n].append(round(cs.cuda_ms(
-                    lambda: launch(libs[n], name), 20), 4))
-        print(f"{name} on the phase-4 gate ({B} reads, {len(rows)} SA "
-              f"rows): ms by build {json.dumps(times)}", flush=True)
-
-    rows4 = np.concatenate([rng.integers(0, po.n_rows + 1, 100_000),
-                            [0, po.primary, po.n_rows]]).astype(np.int64)
-    time_rank4(libs, dev, "the phase-4 gate's tables, n_dev 4", shards,
-               torch.from_numpy(rows4).to(dev),
-               smem_torch.rank4(d, torch.from_numpy(rows4).to(dev)))
-    del d, progs, shards
+    ins = seed_inputs(ix, dev, rng, (mat, qlen), 100_000,
+                      [[0, po.primary, po.n_rows]], sa_rows)
+    time_seed_scale(libs, layouts, ix, "the phase-4 gate", ins,
+                    one + sharded(4))
+    del ix, ins, progs
     torch.cuda.empty_cache()
-    hpo, hssa = cs.human_scale_tables(dev)
-    hd = smem_torch.DeviceOcc(hpo, dev)
-    edges = [np.arange(max(p - 64, 0), min(p + 65, cs.SH_N_ROWS + 1))
-             for p in (1 << 31, 1 << 32, cs.SH_N_ROWS)]
-    hrows = torch.from_numpy(np.concatenate(
-        [*edges, rng.integers(0, cs.SH_N_ROWS + 1, 1_000_000)])[:1_000_000]
-        .astype(np.int64)).to(dev)
-    want = smem_torch.rank4(hd, hrows)
-    for n_dev in (1, 4):
-        tabs = smem_sharded.ShardedSeedTables(hpo, hssa, cs.SH_SA_INTV,
-                                              [dev] * n_dev)
-        time_rank4(libs, dev, f"the 6.2 G-row index, n_dev {n_dev}", tabs,
-                   hrows, want)
-        del tabs
+    for what, args, n_devs in (
+            ("a chr20-scale index", (9, cs.CHR20_N_ROWS, cs.CHR20_PRIMARY,
+                                     cs.CHR20_SA_INTV), ()),
+            ("the 6.2 G-row index", (), (1, 4))):
+        hpo, hssa = cs.human_scale_tables(dev, *args)
+        sa_intv = args[3] if args else cs.SH_SA_INTV
+        ix = SeedIndex(hpo, hssa, sa_intv, dev, lays)
+        del hpo, hssa
+        n = ix.d.n_rows
+        ins = seed_inputs(ix, dev, rng, edges=[
+            np.arange(max(p - 64, 0), min(p + 65, n + 1))
+            for p in (1 << 31, 1 << 32, n) if p <= n])
+        print(f"{what}: {n} rows, sa_intv {sa_intv}, block records "
+              f"{ix.d.rec.numel() * 4 / 1e9:.3f} GB; "
+              f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB on the "
+              f"card", flush=True)
+        time_seed_scale(libs, layouts, ix, what, ins, one)
+        for n_dev in n_devs:
+            time_seed_scale(libs, layouts, ix, what, ins, sharded(n_dev))
+            ix.drop_shards()
+        del ix, ins
         torch.cuda.empty_cache()
-
-
-def time_rank4(libs, dev, what, tabs, rows, want):
-    """The bare bwt_rank4_sh launch of each library over the shards of
-    `tabs` at `rows` (int64 on dev): the output made once, a sleep kernel
-    queued before the timed launches (so the host's ctypes call between
-    them does not count), three rounds of turns, 20 launches a time; each
-    output == `want` (the plain version's).  Prints the times beside the
-    bytes bound (48 B a query, the row read, 32 B written)."""
-    import ctypes
-
-    import torch
-
-    import chip_smoke as cs
-
-    n = rows.shape[0]
-    sh = ctypes.byref(tabs.shard_table())
-    stream = torch.cuda.current_stream().cuda_stream
-    outs = {name: torch.empty((n, 4), dtype=torch.int64, device=dev)
-            for name in libs}
-
-    def launch(name):
-        rc = libs[name].bwt_rank4_sh(sh, rows.data_ptr(), n,
-                                     outs[name].data_ptr(), stream)
-        if rc != 0:
-            sys.exit(f"bwt_rank4_sh launch failed: {rc}")
-
-    names = list(libs)
-    times = {name: [] for name in names}
-    for k in range(3):
-        for name in (names if k % 2 == 0 else names[::-1]):
-            outs[name].fill_(-1)
-            launch(name)
-            if not torch.equal(outs[name], want):
-                sys.exit(f"bwt_rank4_sh on {what}: {name} != plain")
-            times[name].append(round(cs.cuda_ms(
-                lambda: launch(name), 20, sleep_cycles=4_000_000), 5))
-    n_bytes = n * (48 + 8 + 32)
-    bound = 1e3 * n_bytes / cs.PEAK_BYTES
-    shares = times.items()
-    print(f"bwt_rank4_sh bare launch on {what}: {n} rows, {n_bytes} B -> "
-          f"bytes bound {bound:.5f} ms; ms by build {json.dumps(times)}; "
-          f"share of the bound by build "
-          f"{json.dumps({k: round(bound / min(v), 4) for k, v in shares})}",
-          flush=True)
 
 
 # The traceback walk of each version of csrc/global_sw.cuh, stubbed out
@@ -708,7 +894,8 @@ def main() -> int:
         timeout=60).stdout.strip(), flush=True)
     dev = torch.device("cuda:0")
     tmp = tempfile.mkdtemp(prefix="bwamem_tune_")
-    libs = {}
+    libs, layouts = {}, {}
+
     def bind_present(lib):
         """_build._bind for a library that may lack the newer entries."""
         class Present:
@@ -738,6 +925,9 @@ def main() -> int:
         with_table(sources[name], csrc, table)
         kl = _build.build(csrc, os.path.join(csrc, "build"), bind_present)
         libs[name] = kl.lib
+        layouts[name] = seed_layout(csrc)
+        if seed and layouts[name] == "rows":
+            bind_rows_seed(kl.lib)
         print(f"{name}: built in {kl.build_seconds:.1f}s; "
               f"{cs.ptxas_summary(kl.log)}", flush=True)
         if (name == "committed" or name.startswith("against")) \
@@ -773,7 +963,7 @@ def main() -> int:
         return [torch.from_numpy(x).to(dev) for x in arrays]
 
     if seed:
-        time_seed_kernels(libs, dev)
+        time_seed_kernels(libs, layouts, dev)
         shutil.rmtree(tmp, ignore_errors=True)
         return 0
     if sw:

@@ -12,9 +12,22 @@ engine's seed rows.  The four launchers over block-range table shards
 (bwt_rank4_sh, bwt_smem_all_sh, bwt_smem1_sh, bwt_sa_sh; the tables of
 ops/smem_sharded.ShardedSeedTables on [cpu] * n, n in {1, 3, 8}) give the
 plain version's outputs on the whole index, and rank4 holds at a block
-origin of 2^26 (a 2^32-row offset)."""
+origin of 2^26 (a 2^32-row offset).
+
+The SA walk on the block-record layout (csrc/fm_seed.cuh, lf_step and
+sa_value_dev) is held on an index whose text has N runs, built at
+sa_intv 8 and 32 (the mask-and-shift path) and 6 (the division path of
+the one-table kernel): rows at block offsets 0 and 63, the primary row,
+rows whose BWT symbol is N, walks cut at max_it; every position equals
+smem_torch.sa_batch and the JAX package's _sa_kernel
+(smem_jax.make_sa_batch_device).  The sharded twin runs at 1-4 shards at
+a block origin of 2^26, the walks kept inside the table by C and the
+primary row moved up by the origin and the sampled SA by 2^32, so rows
+and positions lie above 2^32; there it equals the plain version over the
+same shards."""
 
 import ctypes
+import dataclasses
 import functools
 import os
 import subprocess
@@ -23,6 +36,9 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
+from bwamem_tpu.ops import smem_jax
 from bwamem_tpu_torch.config import MemOptions
 from bwamem_tpu_torch.index.build import build_index
 from bwamem_tpu_torch.index.occ_packed import pack_occ
@@ -86,8 +102,7 @@ def hard_reads():
 
 
 def _tables(d):
-    return (d.occ.data_ptr(), d.pk.data_ptr(), d.va.data_ptr(),
-            d.C.data_ptr(), d.primary, d.n_rows)
+    return d.rec.data_ptr(), d.C.data_ptr(), d.primary, d.n_rows
 
 
 class EmuPrograms(smem_torch.Programs):
@@ -350,3 +365,108 @@ def test_rank4_sh_body_at_a_2_32_row_origin(lib, world, plain, n):
     rows, want = plain("rank4")
     got = _run_sh(lib, tabs.shard_table(), "rank4", rows + (origin << 6))
     np.testing.assert_array_equal(got, want)
+
+
+@functools.cache
+def n_world(sa_intv):
+    """An index of a 6 kbp text with N runs (so the BWT has N rows besides
+    the primary) at `sa_intv`: (fm, po, d, ssa tensor)."""
+    rng = np.random.default_rng(41)
+    text = rng.integers(0, 4, 6000).astype(np.uint8)
+    for at in (700, 2500, 2510, 4100):
+        text[at:at + rng.integers(1, 30)] = 4
+    fm = build_index(text, sa_intv=sa_intv)
+    po = pack_occ(fm)
+    return (fm, po, smem_torch.DeviceOcc(po, "cpu"),
+            torch.from_numpy(np.asarray(fm.ssa, np.int64)))
+
+
+def n_rows_of(po):
+    """The rows whose BWT symbol is N (validity lane 0), the primary
+    row's excluded."""
+    r = np.arange(po.n_rows)
+    word = po.va_rows[r >> 6, (r & 63) >> 4].astype(np.int64)
+    ok = (word >> (2 * (r & 15))) & 1
+    return r[(ok == 0) & (r != po.primary)]
+
+
+def sa_rows(po, rng, n=1500):
+    """Rows at block offsets 0 and 63, the primary row, every N row, the
+    table's last row, and random rows."""
+    blocks = rng.integers(0, po.n_rows >> 6, 60)
+    edge = np.concatenate([blocks << 6, (blocks << 6) + 63])
+    rows = np.concatenate([edge[edge < po.n_rows], [po.primary, 0,
+                                                    po.n_rows - 1],
+                           n_rows_of(po), rng.integers(0, po.n_rows, n)])
+    return np.ascontiguousarray(rows, np.int64)
+
+
+def emu_sa(lib, d, ssa, sa_intv, rows, max_it):
+    out = _garbage(len(rows))
+    assert lib.bwt_sa(*_tables(d), ssa.data_ptr(), len(ssa), sa_intv,
+                      rows.ctypes.data, len(rows), max_it, out.ctypes.data,
+                      None) == 0
+    return out
+
+
+@pytest.mark.parametrize("sa_intv", [8, 32, 6])
+def test_sa_body_on_records_matches_plain_and_jax(lib, sa_intv):
+    """The one-table walk on the record layout, shift path (8, 32) and
+    division path (6): every row == plain == the JAX program, N rows and
+    the primary row among them."""
+    fm, po, d, ssa = n_world(sa_intv)
+    rows = sa_rows(po, np.random.default_rng(sa_intv))
+    assert len(n_rows_of(po)) >= 20
+    got = emu_sa(lib, d, ssa, sa_intv, rows, smem_torch.sa_max_it(po.n_rows))
+    want = smem_torch.sa_batch(d, ssa, sa_intv, torch.from_numpy(rows))
+    np.testing.assert_array_equal(got, want.numpy())
+    jax_out = smem_jax.make_sa_batch_device(
+        smem_jax.DeviceOcc(po), fm.ssa, sa_intv)(
+            jnp.asarray(rows.astype(np.int32)))
+    np.testing.assert_array_equal(got, np.asarray(jax_out).astype(np.int64))
+    assert got[rows == po.primary].tolist() == [0]
+    assert len(np.unique(got)) > 1000
+
+
+@pytest.mark.parametrize("max_it", [1, 3, 7])
+def test_sa_body_gives_up_at_max_it(lib, max_it):
+    """Walks cut at max_it steps give 0, as the plain version's."""
+    _fm, po, d, ssa = n_world(32)
+    rows = sa_rows(po, np.random.default_rng(max_it), 500)
+    got = emu_sa(lib, d, ssa, 32, rows, max_it)
+    want, done = smem_torch.sa_walk(d, ssa, 32, torch.from_numpy(rows),
+                                    max_it=max_it)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert (~done).sum() > 100 and done.sum() > 20
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+@pytest.mark.parametrize("sa_intv", [8, 32])
+def test_sa_sh_body_above_2_32(lib, n, sa_intv):
+    """The sharded walk at a block origin of 2^26: C[0..3] and the primary
+    row moved up by the origin's 2^32 rows (so an LF step from a row r +
+    2^32 gives LF(r) + 2^32, an N row's step too) and the sampled SA by
+    2^32; rows and positions above 2^32, every one == the plain version
+    over the same shards (a sampled row's index, past n_ssa here, is
+    reduced modulo n_ssa by both)."""
+    fm, po, d, ssa = n_world(sa_intv)
+    origin = 1 << 26
+    O = origin << 6
+    C = np.asarray(po.C, np.int64).copy()
+    C[:4] += O
+    hi = dataclasses.replace(po, C=C, primary=po.primary + O,
+                             n_rows=po.n_rows + O)
+    tabs = smem_sharded.ShardedSeedTables(
+        hi, np.asarray(fm.ssa, np.int64) + (1 << 32), sa_intv,
+        [torch.device("cpu")] * n, blk_origin=origin)
+    rows = sa_rows(po, np.random.default_rng(n))
+    max_it = smem_torch.sa_max_it(po.n_rows)
+    out = _garbage(len(rows))
+    assert lib.bwt_sa_sh(ctypes.byref(tabs.shard_table()),
+                         (rows + O).ctypes.data, len(rows), max_it,
+                         out.ctypes.data, None) == 0
+    v = tabs.view(torch.device("cpu"))
+    want = smem_torch.sa_batch(v, v.ssa, sa_intv,
+                               torch.from_numpy(rows + O), max_it=max_it)
+    np.testing.assert_array_equal(out, want.numpy())
+    assert out.min() >= 0 and (out >= 1 << 32).sum() > len(rows) // 2

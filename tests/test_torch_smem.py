@@ -11,7 +11,10 @@ the same inputs, and against the C++ engine.
 - sa_batch == make_sa_batch_device;
 - the plain seeder's rows == the JAX collect_seeds_device's == the port's
   native collect_seeds_native (csrc/smem.cpp): every row, every field, in
-  order, with reads that overflow and split re-seed rounds.
+  order, with reads that overflow and split re-seed rounds;
+- the tables of a DeviceOcc and of ShardedSeedTables are column views of
+  the kernels' block records, equal to the PackedOcc's arrays, and the
+  three programs read through those views equal the JAX programs.
 
 The world is a 60 kbp genome with a repeat plus the overflow contig of
 tests/_torch_gate.py; the reads are its seeding gate batch.  Positions are
@@ -28,7 +31,7 @@ from bwamem_tpu_torch.config import MemOptions
 from bwamem_tpu_torch.index import occ_packed
 from bwamem_tpu_torch.index.build import build_index
 from bwamem_tpu_torch.index.occ_packed import pack_occ
-from bwamem_tpu_torch.ops import smem_torch
+from bwamem_tpu_torch.ops import smem_sharded, smem_torch
 
 import _torch_gate as gate
 
@@ -175,3 +178,89 @@ def test_seeders_refuse_2_31_rows(world, factory):
     with pytest.raises(ValueError, match="2\\^31"):
         smem_jax.make_device_seeder(big, fm, MemOptions())
     make.make_device_seeder(po, fm, MemOptions(), "cpu")   # below: builds
+
+
+def same_storage(view, base):
+    return view.untyped_storage().data_ptr() == base.untyped_storage(
+        ).data_ptr()
+
+
+def test_device_occ_views_are_the_packed_tables(world):
+    """DeviceOcc holds one (NB+1, 16) int32 tensor of block records;
+    occ / pk / va are column views of it equal to the PackedOcc's arrays
+    (uint32 words as int32), and the padding words are 0."""
+    _fm, po, *_ = world
+    d = smem_torch.DeviceOcc(po, "cpu")
+    assert d.rec.shape == (len(po.occ_rows), smem_torch.REC_WORDS)
+    assert d.rec.dtype == torch.int32 and d.rec.is_contiguous()
+    for view, table in ((d.occ, po.occ_rows), (d.pk, po.pk_rows),
+                        (d.va, po.va_rows)):
+        assert same_storage(view, d.rec)
+        np.testing.assert_array_equal(
+            view.numpy(), np.asarray(table).view(np.int32))
+    assert not d.rec[:, 12:].any()
+    assert not d.rec[len(po.pk_rows):, 4:].any()
+
+
+@pytest.mark.parametrize("n", [1, 3, 8])
+def test_sharded_views_are_the_packed_tables(world, n):
+    """ShardedSeedTables: shard k's nb_loc records, its occ / pk / va
+    views of them; the shards' views joined equal the PackedOcc's arrays,
+    zero past their end, and each shard table pointer is its record's."""
+    fm, po, *_ = world
+    tabs = smem_sharded.ShardedSeedTables(po, fm.ssa, fm.sa_intv,
+                                          [torch.device("cpu")] * n)
+    for k in range(n):
+        assert tabs.rec[k].shape == (tabs.nb_loc, smem_torch.REC_WORDS)
+        assert all(same_storage(p[k], tabs.rec[k])
+                   for p in (tabs.occ, tabs.pk, tabs.va))
+        assert tabs.shard_table().rec[k] == tabs.rec[k].data_ptr()
+    for parts, table in ((tabs.occ, po.occ_rows), (tabs.pk, po.pk_rows),
+                         (tabs.va, po.va_rows)):
+        whole = torch.cat(parts).numpy()
+        np.testing.assert_array_equal(whole[:len(table)],
+                                      np.asarray(table).view(np.int32))
+        assert not whole[len(table):].any()
+
+
+@pytest.mark.parametrize("program", ["smem1", "smem_all", "sa"])
+def test_plain_programs_on_records_match_jax(world, program):
+    """The plain programs reading the tables through the record views
+    (every gather a strided row of the records) == the JAX programs."""
+    fm, po, *_ = world
+    d = smem_torch.DeviceOcc(po, "cpu")
+    assert not d.pk.is_contiguous() and same_storage(d.pk, d.rec)
+    rng, _, mat, qlen = gate_batch(world, 40)
+    jd = smem_jax.DeviceOcc(po)
+    if program == "smem1":
+        x = rng.integers(0, np.maximum(qlen, 1))
+        mi = rng.choice([1, 2, 5], len(qlen))
+        got = smem_torch.smem1(d, *(torch.from_numpy(a)
+                                    for a in (mat, qlen, x, mi)))
+        want = smem_jax.make_smem1_device(jd)(
+            *(a.astype(np.int32) for a in (mat, qlen, x, mi)))
+        for k, (g, w) in enumerate(zip(got, want)):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w).astype(
+                np.int64), err_msg=f"output {k}")
+        assert int(got[7].sum()) >= len(qlen) // 2
+    elif program == "smem_all":
+        msl = MemOptions().min_seed_len
+        got = smem_torch.smem_all(d, torch.from_numpy(mat),
+                                  torch.from_numpy(qlen), msl).numpy()
+        want = np.asarray(smem_jax.make_smem_all_device(jd)(
+            jnp.asarray(mat.astype(np.int32)),
+            jnp.asarray(qlen.astype(np.int32)), jnp.int32(msl))
+        ).astype(np.int64)
+        np.testing.assert_array_equal(got[:, :2], want[:, :2])
+        ok = got[:, 1] == 0
+        np.testing.assert_array_equal(got[ok], want[ok])
+        assert int(got[:, 0].sum()) > 50
+    else:
+        rows = rng.integers(0, po.n_rows, 512)
+        rows[:2] = [po.primary, po.n_rows - 1]
+        got = smem_torch.sa_batch(
+            d, torch.from_numpy(fm.ssa.astype(np.int64)), fm.sa_intv,
+            torch.from_numpy(rows)).numpy()
+        want = smem_jax.make_sa_batch_device(jd, fm.ssa, fm.sa_intv)(
+            jnp.asarray(rows.astype(np.int32)))
+        np.testing.assert_array_equal(got, np.asarray(want).astype(np.int64))

@@ -10,13 +10,13 @@ Host half, the port's own copies of the reference's JAX-free modules:
   config.py           MemOptions, build_mat
   io/                 FASTA, FASTQ, SAM
   native/             the ctypes loader of the C++ host (csrc/*.cpp at
-                      the repository's root), built into the port's own
-                      bwamem_tpu_torch/build/
+                      the repository's root, with the port's own
+                      mempipe.cpp), built into bwamem_tpu_torch/build/
   index/              FM-index build, packed Occ, batched SMEM
   ops/extend_ref.py, ops/local_ref.py  the scalar bwa-0.7.8 oracles
   pipeline/{tasks,wire,cigar,chain,align}.py
   pipeline/driver.py, pipeline/pair.py  the Python host (--host python)
-  pipeline/native_driver.py  NativePipeline over csrc/mempipe.cpp, the
+  pipeline/native_driver.py  NativePipeline over native/mempipe.cpp, the
                       per-phase (--phased) and host-shipped fused
                       (--ship-ref) backends, the resident-text packing
   utils/, parallel/multihost.py  trace, checkpoint, read sharding

@@ -172,7 +172,7 @@ def mem_device(args):
                                      torch.cuda.device_count()))
 
 
-def make_backends(opt, args, pac, paired, device):
+def make_backends(opt, args, pac, paired, device, tracer=None):
     """(extension, rescue, CIGAR) backends that `args` selects, on
     `device`: the GPU (`cuda`) or the CPU (`torch`).  Extension: for the
     Python host an extend_batch_fn (None for `scalar`); for the native
@@ -181,7 +181,8 @@ def make_backends(opt, args, pac, paired, device):
     Rescue (--device-rescue, native PE) and CIGAR (--device-cigar,
     native host) are None where the host does that work; with --ship-ref
     they take windows from the host, else they gather them from the one
-    resident text that every idx backend shares."""
+    resident text that every idx backend shares; `tracer` gives the idx
+    backends' calls their spans."""
     from bwamem_tpu_torch.ops.types import params_from_options
 
     if args.backend == "scalar":
@@ -205,7 +206,8 @@ def make_backends(opt, args, pac, paired, device):
         ext_fn = native_driver.make_fused_backend(params, device)
     else:
         ext_fn = resident.make_fused_idx_backend(params, pac, device,
-                                                 text_dev=text_dev)
+                                                 text_dev=text_dev,
+                                                 tracer=tracer)
     rescue_fn = cigar_fn = None
     if args.device_cigar:
         if args.ship_ref:
@@ -214,7 +216,7 @@ def make_backends(opt, args, pac, paired, device):
             cigar_fn = make_cigar_backend(device)
         else:  # resident-reference rounds: meta-only H2D
             cigar_fn = resident.make_cigar_idx_backend(
-                pac, device, text_dev=text_dev)
+                pac, device, text_dev=text_dev, tracer=tracer)
     if want_rescue:
         if args.ship_ref:
             from bwamem_tpu_torch.ops.local_torch import make_rescue_backend
@@ -222,20 +224,23 @@ def make_backends(opt, args, pac, paired, device):
             rescue_fn = make_rescue_backend(device)
         else:  # resident-reference waves: meta-only H2D
             rescue_fn = resident.make_rescue_idx_backend(
-                pac, device, text_dev=text_dev)
+                pac, device, text_dev=text_dev, tracer=tracer)
     return ext_fn, rescue_fn, cigar_fn
 
 
 def cmd_mem(args) -> int:
+    import contextlib
+
     from bwamem_tpu_torch.parallel import multihost
 
-    try:
-        return _mem(args)
-    finally:
-        multihost.destroy()    # the process group init_distributed joined
+    with contextlib.ExitStack() as cleanup:
+        # the process group init_distributed joined; the trace, last in
+        # first out, also when the run fails
+        cleanup.callback(multihost.destroy)
+        return _mem(args, cleanup)
 
 
-def _mem(args) -> int:
+def _mem(args, cleanup) -> int:
     import time
 
     from bwamem_tpu_torch.config import MemOptions
@@ -243,6 +248,7 @@ def _mem(args) -> int:
     from bwamem_tpu_torch.io.fastq import iter_fastq_chunks
     from bwamem_tpu_torch.io.sam import sam_header
     from bwamem_tpu_torch.pipeline import native_driver
+    from bwamem_tpu_torch.utils.metrics import Tracer, span
 
     why = not_ported(args) or bad_combination(args)
     if why:
@@ -276,10 +282,14 @@ def _mem(args) -> int:
     if args.device_rescue and (not paired or on_python):
         sys.stderr.write("[mem] --device-rescue applies to the native PE "
                          "path; ignored here\n")
+    tracer = None
+    if args.trace:
+        tracer = Tracer(args.trace)
+        cleanup.callback(tracer.close)
     try:
         device = mem_device(args)
         ext_fn, rescue_fn, cigar_fn = make_backends(opt, args, ref.pac,
-                                                    paired, device)
+                                                    paired, device, tracer)
     except (RuntimeError, ValueError) as e:
         # --backend cuda without a GPU, or LOCAL_RANK beyond the cards
         sys.stderr.write(f"[mem] {e}\n")
@@ -306,13 +316,13 @@ def _mem(args) -> int:
     pair_iter = None
     if args.p and not args.mates:
         # -p: one file of interleaved pairs — de-interleave per chunk
-        pair_iter = ((c[0::2], c[1::2])
-                     for c in iter_fastq_chunks(args.reads, 2 * args.b))
+        pair_iter = ((c[0::2], c[1::2]) for c in iter_fastq_chunks(
+            args.reads, 2 * args.b, tracer=tracer))
     elif args.mates:
-        pair_iter = zip(iter_fastq_chunks(args.reads, args.b),
-                        iter_fastq_chunks(args.mates, args.b))
+        pair_iter = zip(iter_fastq_chunks(args.reads, args.b, tracer=tracer),
+                        iter_fastq_chunks(args.mates, args.b, tracer=tracer))
     else:
-        chunks = iter_fastq_chunks(args.reads, args.b)
+        chunks = iter_fastq_chunks(args.reads, args.b, tracer=tracer)
     # each process aligns the strided shard_reads assignment and writes
     # its own SAM; `merge` restores input order byte-identically.
     # --shard K/N is explicit; else the torch.distributed environment
@@ -345,11 +355,6 @@ def _mem(args) -> int:
             if f.startswith("ID:"):
                 rg_id = f[3:]
                 break
-    tracer = None
-    if args.trace:
-        from bwamem_tpu_torch.utils.metrics import Tracer
-
-        tracer = Tracer(args.trace)
     manifest = None
     if args.resume:
         from bwamem_tpu_torch.utils.checkpoint import Manifest, ReadRange
@@ -392,12 +397,16 @@ def _mem(args) -> int:
             steady[0] = time.time()
             steady[1] = reads_done
 
+    if tracer is not None:
+        tracer.chunk = 0           # the first chunk's input
     if pair_iter is not None:
         # the native host runs the full PE chunk in C++ (pestat, mate
         # rescue, pairing, sam_pe); the Python host runs pair.align_pairs
         from bwamem_tpu_torch.pipeline.pair import align_pairs
 
-        for chunk, mchunk in pair_iter:
+        for ci, (chunk, mchunk) in enumerate(pair_iter):
+            if tracer is not None:
+                tracer.chunk = ci
             if len(chunk) != len(mchunk):
                 raise ValueError("read/mate count mismatch")
             start = n_reads // 2
@@ -406,11 +415,13 @@ def _mem(args) -> int:
                 rr = ReadRange(0, start, start + len(chunk))
                 if manifest.is_done(rr):
                     continue
-            kw = dict(names=[r.name for r in chunk],
-                      quals1=[r.qual for r in chunk],
-                      quals2=[m.qual for m in mchunk])
-            seqs1 = [r.seq.astype(np.int64) for r in chunk]
-            seqs2 = [m.seq.astype(np.int64) for m in mchunk]
+            with span(tracer, "chunk.prep"):
+                kw = dict(names=[r.name for r in chunk],
+                          quals1=[r.qual for r in chunk],
+                          quals2=[m.qual for m in mchunk])
+                seqs1 = [r.seq.astype(np.int64) for r in chunk]
+                seqs2 = [m.seq.astype(np.int64) for m in mchunk]
+            text = None
             if on_python:
                 recs = align_pairs(opt, ref, fm, seqs1, seqs2, po=po,
                                    extend_batch_fn=ext_fn, **kw)
@@ -419,24 +430,28 @@ def _mem(args) -> int:
                 text, nr_ = pipes[0].align_pairs_chunk_text(
                     seqs1, seqs2, ext_fn, rescue_fn=rescue_fn,
                     cigar_fn=cigar_fn, **kw)
-                out.write(text)
                 n_rec += nr_
                 recs = []
             else:
                 recs = pipes[0].align_pairs_chunk(
                     seqs1, seqs2, ext_fn, rescue_fn=rescue_fn,
                     cigar_fn=cigar_fn, **kw)
-            for gi, rr_ in enumerate(recs):
-                cms = ((chunk[gi].comment, mchunk[gi].comment) if args.C
-                       else None)
-                for rec in rr_:
-                    emit(rec, cms)
-                    n_rec += 1
+            with span(tracer, "sam.write"):
+                if text is not None:
+                    out.write(text)
+                for gi, rr_ in enumerate(recs):
+                    cms = ((chunk[gi].comment, mchunk[gi].comment)
+                           if args.C else None)
+                    for rec in rr_:
+                        emit(rec, cms)
+                        n_rec += 1
             if manifest is not None:
                 manifest.mark_done(rr)
             mark_chunk_done(n_reads)
             if args.v >= 3:
                 sys.stderr.write(f"[mem] processed {n_reads} reads\n")
+            if tracer is not None:
+                tracer.chunk = ci + 1   # the next chunk's input
     else:
         # --inflight pipeline handles: chunk n+1's host work (C++,
         # GIL-free) overlaps chunk n's device work
@@ -449,9 +464,12 @@ def _mem(args) -> int:
         def run_chunk(ci, chunk):
             """The chunk's SAM as (text, records) from the native fast
             path, else as per-read record lists."""
-            seqs = [r.seq.astype(np.int64) for r in chunk]
-            kw = dict(names=[r.name for r in chunk],
-                      quals=[r.qual for r in chunk])
+            if tracer is not None:
+                tracer.chunk = ci          # this worker thread's chunk
+            with span(tracer, "chunk.prep"):
+                seqs = [r.seq.astype(np.int64) for r in chunk]
+                kw = dict(names=[r.name for r in chunk],
+                          quals=[r.qual for r in chunk])
             if on_python and ext_fn is None:
                 return [A.align_read(opt, ref, fm, r.name, sq, r.qual)
                         for r, sq in zip(chunk, seqs)]
@@ -470,16 +488,18 @@ def _mem(args) -> int:
         def flush_one(futs):
             nonlocal n_rec, reads_done
             rng_, cms, n_chunk, fut = futs.popleft()
-            got = fut.result()
-            if isinstance(got, tuple):
-                text, nr_ = got
-                out.write(text)
-                n_rec += nr_
-            else:
-                for gi, rr in enumerate(got):
-                    for rec in rr:
-                        emit(rec, (cms[gi], None) if args.C else None)
-                        n_rec += 1
+            with span(tracer, "chunk.join"):
+                got = fut.result()
+            with span(tracer, "sam.write"):
+                if isinstance(got, tuple):
+                    text, nr_ = got
+                    out.write(text)
+                    n_rec += nr_
+                else:
+                    for gi, rr in enumerate(got):
+                        for rec in rr:
+                            emit(rec, (cms[gi], None) if args.C else None)
+                            n_rec += 1
             if manifest is not None:
                 manifest.mark_done(rng_)
             reads_done += n_chunk
@@ -503,6 +523,8 @@ def _mem(args) -> int:
                              else None, len(chunk),
                              ex.submit(run_chunk, submitted, chunk)))
                 submitted += 1
+                if tracer is not None:
+                    tracer.chunk = submitted   # the next chunk's input
                 while len(futs) >= depth:
                     flush_one(futs)
             while futs:
@@ -536,7 +558,6 @@ def _mem(args) -> int:
 
         sys.stderr.write("[mem] counters: "
                          + json.dumps(tracer.counters.as_dict()) + "\n")
-        tracer.close()
     return 0
 
 

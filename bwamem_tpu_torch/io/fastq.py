@@ -13,6 +13,7 @@ from typing import Iterator
 import numpy as np
 
 from bwamem_tpu_torch.io.fasta import encode_seq
+from bwamem_tpu_torch.utils.metrics import span
 
 
 @dataclasses.dataclass
@@ -77,46 +78,58 @@ def read_fastq(path: str) -> list[Read]:
 
 
 def iter_fastq_chunks(path: str, chunk_reads: int,
-                      block_bytes: int = 1 << 23) -> Iterator[list[Read]]:
+                      block_bytes: int = 1 << 23,
+                      tracer=None) -> Iterator[list[Read]]:
     """Stream a (strict 4-line) FASTQ file in bounded memory, yielding
     lists of `chunk_reads` reads — the WGS-scale ingest path (the
     reference host streams reads the same way; whole-file slurping is
     kept only for small inputs/tests).  FASTA input (multi-line
     records) falls back to a whole-file parse.  Gzipped inputs stream
-    through zlib decompression block by block."""
+    through zlib decompression block by block.  Given a `tracer`
+    (utils.metrics.Tracer), the time blocked in the stream's read is
+    `input.read` spans and the parsing and slicing `input.parse` spans;
+    none is open while the caller holds a chunk."""
     with _open_seq(path) as f:
-        head = f.read(1)
+        with span(tracer, "input.read"):
+            head = f.read(1)
         if head != b"@":  # FASTA or empty: no 4-line framing
-            buf = head + f.read()
-            reads = _read_fastq_native(buf)
-            if reads is None:
-                reads = list(parse_fastq(buf.decode()))
+            with span(tracer, "input.read"):
+                buf = head + f.read()
+            with span(tracer, "input.parse"):
+                reads = _read_fastq_native(buf)
+                if reads is None:
+                    reads = list(parse_fastq(buf.decode()))
             for i in range(0, len(reads), chunk_reads):
                 yield reads[i:i + chunk_reads]
             return
         carry = b"@"
         pending: list[Read] = []
         while True:
-            block = f.read(block_bytes)
+            with span(tracer, "input.read"):
+                block = f.read(block_bytes)
             if not block:
                 break
-            buf = carry + block
-            arr = np.frombuffer(buf, np.uint8)
-            nls = np.flatnonzero(arr == 10)
-            full = len(nls) // 4 * 4
-            if full == 0:
-                carry = buf
-                continue
-            pos = int(nls[full - 1]) + 1
-            span, carry = buf[:pos], buf[pos:]
-            pending.extend(_parse_span(span))
+            with span(tracer, "input.parse"):
+                buf = carry + block
+                arr = np.frombuffer(buf, np.uint8)
+                nls = np.flatnonzero(arr == 10)
+                full = len(nls) // 4 * 4
+                if full == 0:
+                    carry = buf
+                    continue
+                pos = int(nls[full - 1]) + 1
+                records, carry = buf[:pos], buf[pos:]
+                pending.extend(_parse_span(records))
             while len(pending) >= chunk_reads:
-                yield pending[:chunk_reads]
-                pending = pending[chunk_reads:]
-        if carry.strip():
-            if not carry.endswith(b"\n"):
-                carry += b"\n"
-            pending.extend(_parse_span(carry))
+                with span(tracer, "input.parse"):
+                    chunk = pending[:chunk_reads]
+                    pending = pending[chunk_reads:]
+                yield chunk
+        with span(tracer, "input.parse"):
+            if carry.strip():
+                if not carry.endswith(b"\n"):
+                    carry += b"\n"
+                pending.extend(_parse_span(carry))
         while pending:
             yield pending[:chunk_reads]
             pending = pending[chunk_reads:]

@@ -1,8 +1,10 @@
 """Native (C++) host components of the port, loaded via ctypes.
 
 The host sources are csrc/*.cpp at the repository's root (they belong to
-neither Python package: they are read and compiled, not imported).  The
-library builds lazily with g++ on first use into the port's own
+neither Python package: they are read and compiled, not imported), each
+replaced by the port's own copy where this directory holds a .cpp of the
+same name: mempipe.cpp, which adds the phase stamps of `mem --trace`
+(mp_phase_stamps).  The library builds lazily with g++ on first use into the port's own
 gitignored build directory, bwamem_tpu_torch/build/libbwamem_host.so,
 and rebuilds when a source is newer.  The build writes a temporary file
 and renames it, so processes that start together never load a half
@@ -32,9 +34,15 @@ _lib = None
 _tried = False
 
 
+def _sources() -> list[str]:
+    """csrc/*.cpp, each from this directory where the port has a copy."""
+    own = set(os.listdir(_HERE))
+    return [os.path.join(_HERE if f in own else _CSRC, f)
+            for f in sorted(os.listdir(_CSRC)) if f.endswith(".cpp")]
+
+
 def _build() -> bool:
-    srcs = [os.path.join(_CSRC, f) for f in sorted(os.listdir(_CSRC))
-            if f.endswith(".cpp")]
+    srcs = _sources()
     if not srcs:
         return False
     tmp = f"{_SO}.{os.getpid()}.tmp"
@@ -90,9 +98,7 @@ def get_lib():
 def _newer_sources() -> bool:
     try:
         so_mtime = os.path.getmtime(_SO)
-        return any(
-            os.path.getmtime(os.path.join(_CSRC, f)) > so_mtime
-            for f in os.listdir(_CSRC) if f.endswith(".cpp"))
+        return any(os.path.getmtime(f) > so_mtime for f in _sources())
     except OSError:
         return True
 
@@ -340,6 +346,8 @@ def _bind_mempipe(lib):
     lib.mp_set_rg.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
     lib.mp_chunk_end.restype = None
     lib.mp_chunk_end.argtypes = [ctypes.c_void_p]
+    lib.mp_phase_stamps.restype = i64
+    lib.mp_phase_stamps.argtypes = [ctypes.c_void_p, p64, i64]
 
 
 def _bind_smem(lib):

@@ -17,6 +17,13 @@ on the device, and the kernels of ops/local_cuda or ops/global_cuda run
 on them.
 `make_resident_text` is called once and its tensor handed to every idx
 backend (`text_dev=`), so the reference is on the card once.
+Given a `tracer` (utils.metrics.Tracer), each call of an idx backend is
+three spans inside the caller's row: `<call>.h2d` (the pageable copies
+in), `<call>.launch` (the gathers and the kernel enqueued) and
+`<call>.wait` (the copy back, after the stream drains; for `cigar` also
+the CIGARs run-length coded on the host), `<call>` being
+`fused`, `rescue` or `cigar`; the row also gets `h2d_bytes` and
+`copies`.
 
 The gathers are plain PyTorch (they are XLA ops outside Pallas in the
 JAX package).  Torch has no `>>` for uint32 on the CPU, so the text is
@@ -35,8 +42,19 @@ from bwamem_tpu_torch.device import to_device
 
 from bwamem_tpu_torch.ops import extend_cuda
 from bwamem_tpu_torch.ops.types import params_vector
+from bwamem_tpu_torch.utils.metrics import span
 
 _MASK32 = 0xFFFFFFFF
+
+
+def _copy_in(tracer, call, device, arrays):
+    """The host arrays [(array, numpy dtype)] on `device` as tensors:
+    the `<call>.h2d` span, and its bytes noted on the caller's row."""
+    with span(tracer, call + ".h2d"):
+        out = [to_device(x, dt, device) for x, dt in arrays]
+    if tracer is not None:
+        tracer.note(h2d_bytes=sum(t.nbytes for t in out), copies=len(out))
+    return out
 
 
 def make_resident_text(pac, device) -> torch.Tensor:
@@ -138,7 +156,8 @@ def fused_idx_local(reads_nib, scal, tmax2, prm, text, *, qmax_l, tmax_l,
 
 
 def make_fused_idx_backend(params, pac, device, blk_l: int = 512, *,
-                           text_dev=None, compute_dtype=torch.int32):
+                           text_dev=None, compute_dtype=torch.int32,
+                           tracer=None):
     """The resident-reference fused backend for NativePipeline on
     `device` (a torch.device).  Calls take host numpy arrays and return a
     host numpy array: the H2D and D2H copies happen inside.  tmax2 stays
@@ -147,7 +166,8 @@ def make_fused_idx_backend(params, pac, device, blk_l: int = 512, *,
     calls.  Pass `text_dev` (make_resident_text's tensor on `device`) to
     share the reference with the other idx backends instead of packing
     `pac` again; compute_dtype=torch.int16 runs the 16-bit cell kernel
-    (see fused_idx_local for its bound)."""
+    (see fused_idx_local for its bound); `tracer` gives each call its
+    `fused.*` spans."""
     prm = params_vector(params)
     a_max = int(np.max(np.asarray(params.mat_flat)))
     text = text_dev if text_dev is not None else make_resident_text(
@@ -158,13 +178,15 @@ def make_fused_idx_backend(params, pac, device, blk_l: int = 512, *,
         qmax_l, tmax_l, qmax_r, tmax_r = dims
         with lock:
             fused_idx.dispatches += 1
-        r = to_device(reads_nib, np.int8, device)
-        s = to_device(scal, np.int32, device)
-        out = fused_idx_local(
-            r, s, tmax2, prm, text, qmax_l=qmax_l, tmax_l=tmax_l,
-            qmax_r=qmax_r, tmax_r=tmax_r, a_max=a_max,
-            compute_dtype=compute_dtype)
-        return out.cpu().numpy()
+        r, s = _copy_in(tracer, "fused", device,
+                        [(reads_nib, np.int8), (scal, np.int32)])
+        with span(tracer, "fused.launch"):
+            out = fused_idx_local(
+                r, s, tmax2, prm, text, qmax_l=qmax_l, tmax_l=tmax_l,
+                qmax_r=qmax_r, tmax_r=tmax_r, a_max=a_max,
+                compute_dtype=compute_dtype)
+        with span(tracer, "fused.wait"):
+            return out.cpu().numpy()
 
     fused_idx.fused = True
     fused_idx.idx = True
@@ -192,26 +214,27 @@ def rescue_idx_local(reads_nib, meta, mat, pens, text, *, qmax, tmax):
     return align6(q, meta[0], t.contiguous(), meta[1], mat, pens)
 
 
-def make_rescue_idx_backend(pac, device, *, text_dev=None):
+def make_rescue_idx_backend(pac, device, *, text_dev=None, tracer=None):
     """Resident-reference device mate rescue on `device`: NativePipeline's
     mp_rescue_* wave protocol ships only the (6, Bp) meta block; the
     mate sequences and reference windows are gathered on the device.
     Calls take host numpy arrays and return a (6, Bp) int32 numpy array.
     Pass `text_dev` to share the text tensor with the other idx
-    backends.  `.idx = True` is what the host loop looks for; the
-    backend keeps no state beyond the text."""
+    backends, `tracer` for the `rescue.*` spans.  `.idx = True` is what
+    the host loop looks for; the backend keeps no state beyond the
+    text."""
     device = torch.device(device)
     text = text_dev if text_dev is not None else make_resident_text(
         pac, device)
 
     def rescue_idx(reads_nib, meta, mat, o_del, e_del, o_ins, e_ins,
                    qmax, tmax):
-        out = rescue_idx_local(
-            to_device(reads_nib, np.int8, device),
-            *(to_device(x, np.int32, device)
-              for x in (meta, mat, [o_del, e_del, o_ins, e_ins])),
-            text, qmax=qmax, tmax=tmax)
-        return out.cpu().numpy()
+        args = _copy_in(tracer, "rescue", device, [(reads_nib, np.int8)] + [
+            (x, np.int32) for x in (meta, mat, [o_del, e_del, o_ins, e_ins])])
+        with span(tracer, "rescue.launch"):
+            out = rescue_idx_local(*args, text, qmax=qmax, tmax=tmax)
+        with span(tracer, "rescue.wait"):
+            return out.cpu().numpy()
 
     rescue_idx.idx = True
     return rescue_idx
@@ -243,13 +266,13 @@ def cigar_idx_local(reads_nib, meta, mat, pens, text, *, qmax, tmax,
                         pens, band=band)
 
 
-def make_cigar_idx_backend(pac, device, *, text_dev=None):
+def make_cigar_idx_backend(pac, device, *, text_dev=None, tracer=None):
     """Resident-reference device CIGAR on `device`: NativePipeline's
     mp_cigar_* round protocol ships only the (8, Bp) meta block; query
     and reference segments are gathered on the device.  Calls take host
     numpy arrays and return the round triple of
-    global_torch.pack_cigar_round.  `text_dev` and `.idx` as in
-    make_rescue_idx_backend."""
+    global_torch.pack_cigar_round.  `text_dev`, `tracer` (`cigar.*`) and
+    `.idx` as in make_rescue_idx_backend."""
     from bwamem_tpu_torch.ops.global_torch import band_width, pack_cigar_round
 
     device = torch.device(device)
@@ -258,12 +281,14 @@ def make_cigar_idx_backend(pac, device, *, text_dev=None):
 
     def cigar_idx(reads_nib, meta, mat, o_del, e_del, o_ins, e_ins,
                   qmax, tmax):
-        return pack_cigar_round(*cigar_idx_local(
-            to_device(reads_nib, np.int8, device),
-            *(to_device(x, np.int32, device)
-              for x in (meta, mat, [o_del, e_del, o_ins, e_ins])),
-            text, qmax=qmax, tmax=tmax,
-            band=band_width(meta[0], meta[1], meta[2], qmax)))
+        args = _copy_in(tracer, "cigar", device, [(reads_nib, np.int8)] + [
+            (x, np.int32) for x in (meta, mat, [o_del, e_del, o_ins, e_ins])])
+        with span(tracer, "cigar.launch"):
+            got = cigar_idx_local(
+                *args, text, qmax=qmax, tmax=tmax,
+                band=band_width(meta[0], meta[1], meta[2], qmax))
+        with span(tracer, "cigar.wait"):
+            return pack_cigar_round(*got)
 
     cigar_idx.idx = True
     return cigar_idx

@@ -265,7 +265,7 @@ def test_trace_and_resume(world, jax_runs):
     assert ctr["reads"] == N
 
     kinds, jkinds = _kinds(trace), _kinds(p["jax_trace"])
-    assert set(kinds) == set(jkinds)
+    assert set(jkinds) <= set(kinds)   # the port's spans add kinds
     assert kinds["host_chunk"] == jkinds["host_chunk"]
     assert any(k.startswith("extend_L") for k in kinds)
     assert any(k.startswith("extend_R") for k in kinds)

@@ -22,7 +22,12 @@ torch.set_num_threads(1)
 COPIES = {
     "config": {},
     "io.fasta": {},
-    "io.fastq": {},
+    "io.fastq": {
+        "iter_fastq_chunks": (
+            "tracer= times the stream's reads and the parsing as spans "
+            "(utils.metrics.Tracer); the JAX package's CLI traces no input",
+            None),
+    },
     "io.sam": {},
     "native": {},
     "index.build": {},
@@ -74,7 +79,24 @@ COPIES = {
             "pipeline/resident.py, with a device",
             "pipeline.resident:make_cigar_idx_backend"),
     },
-    "utils.metrics": {},
+    "utils.metrics": {
+        "Counters": (
+            "no device_seconds / host_seconds (only gcups and "
+            "reads_per_sec divided them); h2d_bytes counts the resident "
+            "backends' copies in", None),
+        "Counters.gcups": (
+            "divided by the device call's host wall time, not the "
+            "kernel's: read by nothing", None),
+        "Counters.reads_per_sec": (
+            "summed overlapping threads' seconds: read by nothing; the "
+            "CLI's `[mem] align:` line gives the rate", None),
+        "Tracer.batch": (
+            "a device call's row is a span opened around the call, "
+            "stamped at its start and end", "utils.metrics:span"),
+        "Tracer.host": (
+            "a host_chunk row is a span opened around the chunk's host "
+            "work", "utils.metrics:span"),
+    },
     "utils.checkpoint": {},
     "parallel.multihost": {
         "init_distributed": (

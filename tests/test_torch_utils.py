@@ -21,7 +21,7 @@ from bwamem_tpu_torch.io import fastq, sam
 from bwamem_tpu_torch.io.fasta import Contig
 from bwamem_tpu_torch.pipeline.tasks import pack_tasks
 from bwamem_tpu_torch.utils.checkpoint import Manifest
-from bwamem_tpu_torch.utils.metrics import Tracer, band_cells
+from bwamem_tpu_torch.utils.metrics import Tracer, band_cells, span
 
 from _torch_gate import plain
 
@@ -37,23 +37,45 @@ def test_band_cells():
 
 
 def test_tracer_counters(tmp_path):
+    """The counters and row fields both tracers have agree on the same
+    calls: the port's spans (`span`, what `mem` opens) against the
+    reference's `batch` and `host` rows.  The port's rows add `id`,
+    `parent` and `chunk`, stamp `t` to the microsecond and time `sec`
+    themselves; its counters add `h2d_bytes` and drop `gcups` and
+    `reads_per_sec`; it may add `gc` rows of its own."""
     rows = [("extend_L", 512, 10_000_000, 0.005),
             ("extend_R", 512, 10_000_000, 0.005)]
+    shared = ("reads", "tasks", "band_cells", "device_batches")
     traces = []
     for mod, name in ((None, "port"), (ref_metrics, "ref")):
         path = tmp_path / f"{name}.jsonl"
-        tr = (mod.Tracer if mod else Tracer)(str(path))
-        for r in rows:
-            tr.batch(*r)
-        tr.host(300, 0.25)
-        traces.append(tr.counters.as_dict())
         if mod is None:
+            tr = Tracer(str(path))
+            for kind, n_tasks, cells, _ in rows:
+                with span(tr, kind, n_tasks=n_tasks, cells=cells):
+                    pass
+            with span(tr, "host_chunk", reads=300):
+                tr.note(h2d_bytes=4096, copies=2)
             assert tr.counters.device_batches == 2
-            assert abs(tr.counters.gcups() - 2.0) < 1e-6
+            assert tr.counters.h2d_bytes == 4096
+        else:
+            tr = mod.Tracer(str(path))
+            for r in rows:
+                tr.batch(*r)
+            tr.host(300, 0.25)
+        counters = tr.counters.as_dict()
+        traces.append({k: counters[k] for k in shared})
         tr.close()
         lines = [json.loads(x) for x in path.read_text().splitlines()]
+        if mod is None:
+            lines = [x for x in lines if x["kind"] != "gc"]
+            assert all({"id", "parent", "chunk"} <= set(x) for x in lines)
+            assert all(x["sec"] >= 0 for x in lines)
+            assert lines[-1].pop("h2d_bytes") == 4096
+            assert lines[-1].pop("copies") == 2
         assert len(lines) == 3
-        traces.append([{k: v for k, v in x.items() if k != "t"}
+        traces.append([{k: v for k, v in x.items()
+                        if k not in ("t", "sec", "id", "parent", "chunk")}
                        for x in lines])
     assert traces[:2] == traces[2:]
 

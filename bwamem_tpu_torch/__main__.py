@@ -222,7 +222,7 @@ def make_backends(opt, args, pac, paired, device, tracer=None):
             from bwamem_tpu_torch.ops.local_torch import make_rescue_backend
 
             rescue_fn = make_rescue_backend(device)
-        else:  # resident-reference waves: meta-only H2D
+        else:  # resident-reference batches: meta-only H2D
             rescue_fn = resident.make_rescue_idx_backend(
                 pac, device, text_dev=text_dev, tracer=tracer)
     return ext_fn, rescue_fn, cigar_fn

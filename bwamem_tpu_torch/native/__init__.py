@@ -294,20 +294,22 @@ def _bind_mempipe(lib):
     lib.mp_finalize.argtypes = [ctypes.c_void_p, i64]
     lib.mp_finalize_pe.restype = i64
     lib.mp_finalize_pe.argtypes = [ctypes.c_void_p, i64, i64]
-    # device-rescue wave protocol (mem_matesw batched on-device)
+    # device-rescue protocol (mem_matesw's tasks batched on-device)
     lib.mp_pe_prepare.restype = None
     lib.mp_pe_prepare.argtypes = [ctypes.c_void_p, i64, i64]
     lib.mp_rescue_begin.restype = i64
-    lib.mp_rescue_begin.argtypes = [ctypes.c_void_p]
-    lib.mp_rescue_wave_build.restype = i64
-    lib.mp_rescue_wave_build.argtypes = [ctypes.c_void_p, i64, p64, p64]
+    lib.mp_rescue_begin.argtypes = [ctypes.c_void_p, p64, p64]
     lib.mp_rescue_fill.restype = None
     lib.mp_rescue_fill.argtypes = [ctypes.c_void_p, pi8, i64, pi8, i64,
-                                   p32, i64]
+                                   p32, i64, i64]
     lib.mp_rescue_fill_idx.restype = None
-    lib.mp_rescue_fill_idx.argtypes = [ctypes.c_void_p, p32, i64]
+    lib.mp_rescue_fill_idx.argtypes = [ctypes.c_void_p, p32, i64, i64]
     lib.mp_rescue_apply.restype = None
-    lib.mp_rescue_apply.argtypes = [ctypes.c_void_p, p32, i64]
+    lib.mp_rescue_apply.argtypes = [ctypes.c_void_p, p32, i64, i64]
+    lib.mp_rescue_replay.restype = None
+    lib.mp_rescue_replay.argtypes = [ctypes.c_void_p, i64]
+    lib.mp_rescue_used.restype = i64
+    lib.mp_rescue_used.argtypes = [ctypes.c_void_p, i64, i64]
     lib.mp_finalize_pe_tail.restype = i64
     lib.mp_finalize_pe_tail.argtypes = [ctypes.c_void_p, i64, i64]
     # device-CIGAR round protocol (reg2aln globals batched on-device)

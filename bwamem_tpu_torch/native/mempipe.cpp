@@ -195,16 +195,14 @@ struct MemPipe {
   std::vector<FusedLane> fused;
   // record export offsets
   std::vector<int64_t> rec_read;  // flattened record -> read idx
-  // device-rescue wave protocol (mem_matesw batched onto the
-  // accelerator): pestat + per-pair anchor lists + the current wave's
-  // SW tasks.  Pairs are independent within a wave, so batching wave k
-  // across all pairs preserves bwa's per-pair sequential-anchor
-  // semantics exactly (each anchor's skip test sees the regions
-  // appended by waves 0..k-1).
+  // device-rescue protocol (mem_matesw batched onto the accelerator):
+  // pestat, the anchor snapshot of every read end, the chunk's
+  // speculative task superset with its results, and each anchor's
+  // four orientation slots (see mp_rescue_begin).
   std::string rg_id;  // -R read group: RG:Z:<id> on every record
   PEStatC pe_stat[4];
   int64_t pe_npairs = 0;
-  std::vector<std::vector<RegionC>> rescue_anchors;  // per pair, one end
+  std::vector<std::vector<RegionC>> rescue_anchors;  // per read end
   struct RescueTask {
     int64_t mate_read;  // read index whose regions grow on success
     int64_t rb;         // window start (2-strand coords)
@@ -213,6 +211,12 @@ struct MemPipe {
     std::vector<uint8_t> seq, rseq;
   };
   std::vector<RescueTask> rescue_tasks;
+  std::vector<std::array<int32_t, 6>> rescue_out;  // a result a task
+  std::vector<uint8_t> rescue_have;  // its result is stored
+  std::vector<uint8_t> rescue_used;  // the replay applied it
+  // slots (4 an anchor, anchors of read end ei from rescue_slot_off[ei]):
+  // the task of orientation r, or kSlotSkipped / kSlotEmpty
+  std::vector<int64_t> rescue_slot, rescue_slot_off;
   // (phase, start ns, end ns) of the last stamped call: mp_chunk_start[
   // _seeded], mp_finalize_pe, mp_pe_prepare, mp_finalize_pe_tail
   std::vector<std::array<int64_t, 3>> stamps;
@@ -1152,63 +1156,81 @@ extern "C" void bwamem_ksw_align(const uint8_t*, int64_t, const uint8_t*,
 
 // pair.py mem_matesw, split in two so the SW itself can run either on
 // host (bwamem_ksw_align, the default) or batched on the accelerator
-// (the mp_rescue_* wave protocol): emit computes the skip test + the
+// (the mp_rescue_* protocol): emit computes the skip test + the
 // rescue windows and materializes the oriented mate / reference-window
 // sequences; apply runs the score filter + coordinate transform on a
 // (score,qb,qe,tb,te,score2) result and appends the rescued region.
+
+// The skip test: orientation r is skipped when its insert-size stats
+// failed or a region of the mate already lies in its window.  A list
+// that only grows can only turn skip[r] from false to true.
+void matesw_skip(const MemPipe& mp, const PEStatC pes[4],
+                 const RegionC& anchor,
+                 const std::vector<RegionC>& mate_regs, bool skip[4]) {
+  for (int r = 0; r < 4; ++r) skip[r] = pes[r].failed;
+  for (const auto& m : mate_regs) {
+    int64_t dist;
+    int r = infer_dir(mp.l_pac, anchor.rb, m.rb, &dist);
+    if (!pes[r].failed && dist >= pes[r].low && dist <= pes[r].high)
+      skip[r] = true;
+  }
+}
+
+// Orientation r's task into `t` (its inputs: the anchor, pes and the
+// mate read, never the mate's regions); false when the window is empty.
+bool matesw_task(const MemPipe& mp, const PEStatC pes[4],
+                 const RegionC& anchor, int r, const uint8_t* mate_read,
+                 int64_t l_ms, int64_t mate_ri, MemPipe::RescueTask& t) {
+  int64_t l_pac = mp.l_pac;
+  bool is_rev = ((r >> 1) ^ (r & 1)) != 0;
+  bool is_larger = !(r >> 1);
+  int64_t rb, re;
+  if (!is_rev) {
+    rb = is_larger ? anchor.rb + pes[r].low : anchor.rb - pes[r].high;
+    re = (is_larger ? anchor.rb + pes[r].high : anchor.rb - pes[r].low) +
+         l_ms;
+  } else {
+    rb = (is_larger ? anchor.rb + pes[r].low : anchor.rb - pes[r].high) -
+         l_ms;
+    re = is_larger ? anchor.rb + pes[r].high : anchor.rb - pes[r].low;
+  }
+  rb = std::max(rb, (int64_t)0);
+  re = std::min(re, l_pac << 1);
+  if (rb < l_pac && l_pac < re) {
+    if (anchor.rb < l_pac)
+      re = l_pac;
+    else
+      rb = l_pac;
+  }
+  if (rb >= re) return false;
+  t.mate_read = mate_ri;
+  t.rb = rb;
+  t.l_ms = l_ms;
+  t.is_rev = is_rev;
+  t.seq.assign(mate_read, mate_read + l_ms);
+  if (is_rev) {
+    std::reverse(t.seq.begin(), t.seq.end());
+    for (auto& c : t.seq)
+      if (c < 4) c = 3 - c;
+  }
+  get_seq(mp, rb, re, t.rseq);
+  return true;
+}
+
 int matesw_emit(const MemPipe& mp, const PEStatC pes[4],
                 const RegionC& anchor, const uint8_t* mate_read,
                 int64_t l_ms, const std::vector<RegionC>& mate_regs,
                 int64_t mate_ri,
                 std::vector<MemPipe::RescueTask>& out) {
-  int64_t l_pac = mp.l_pac;
   bool skip[4];
-  for (int r = 0; r < 4; ++r) skip[r] = pes[r].failed;
-  for (const auto& m : mate_regs) {
-    int64_t dist;
-    int r = infer_dir(l_pac, anchor.rb, m.rb, &dist);
-    if (!pes[r].failed && dist >= pes[r].low && dist <= pes[r].high)
-      skip[r] = true;
-  }
+  matesw_skip(mp, pes, anchor, mate_regs, skip);
   if (skip[0] && skip[1] && skip[2] && skip[3]) return 0;
   int n = 0;
   for (int r = 0; r < 4; ++r) {
     if (skip[r]) continue;
-    bool is_rev = ((r >> 1) ^ (r & 1)) != 0;
-    bool is_larger = !(r >> 1);
-    int64_t rb, re;
-    if (!is_rev) {
-      rb = is_larger ? anchor.rb + pes[r].low : anchor.rb - pes[r].high;
-      re = (is_larger ? anchor.rb + pes[r].high
-                      : anchor.rb - pes[r].low) +
-           l_ms;
-    } else {
-      rb = (is_larger ? anchor.rb + pes[r].low
-                      : anchor.rb - pes[r].high) -
-           l_ms;
-      re = is_larger ? anchor.rb + pes[r].high : anchor.rb - pes[r].low;
-    }
-    rb = std::max(rb, (int64_t)0);
-    re = std::min(re, l_pac << 1);
-    if (rb < l_pac && l_pac < re) {
-      if (anchor.rb < l_pac)
-        re = l_pac;
-      else
-        rb = l_pac;
-    }
-    if (rb >= re) continue;
     MemPipe::RescueTask t;
-    t.mate_read = mate_ri;
-    t.rb = rb;
-    t.l_ms = l_ms;
-    t.is_rev = is_rev;
-    t.seq.assign(mate_read, mate_read + l_ms);
-    if (is_rev) {
-      std::reverse(t.seq.begin(), t.seq.end());
-      for (auto& c : t.seq)
-        if (c < 4) c = 3 - c;
-    }
-    get_seq(mp, rb, re, t.rseq);
+    if (!matesw_task(mp, pes, anchor, r, mate_read, l_ms, mate_ri, t))
+      continue;
     out.push_back(std::move(t));
     ++n;
   }
@@ -2082,14 +2104,13 @@ int64_t mp_finalize_pe(void* h, int64_t n_pairs, int64_t nthreads) {
   return n;
 }
 
-// ---- device-rescue wave protocol -----------------------------------
-// mp_finalize_pe split so mem_matesw's local-SW batches can run on the
-// accelerator (ops/local_jax.py): prepare (replay + pestat), then per
-// end phase e in {0,1} and wave k: build wave tasks -> device SW ->
-// apply, and finally the pairing/record tail.  Byte-identical output
-// to mp_finalize_pe because pairs are independent within a wave and
-// each anchor's skip test sees exactly the regions a sequential
-// per-pair loop would have appended.
+// ---- device-rescue protocol ----------------------------------------
+// mp_finalize_pe split so mem_matesw's local-SW tasks run on the
+// accelerator in one batch a chunk: prepare (replay + pestat), begin
+// (the speculative task superset), then per batch of lanes fill ->
+// device SW -> apply (store the results), then replay (bwa's
+// sequential skip test over the stored results) and finally the
+// pairing/record tail.  Byte-identical output to mp_finalize_pe.
 
 void mp_pe_prepare(void* h, int64_t n_pairs, int64_t nthreads) {
   MemPipe& mp = *static_cast<MemPipe*>(h);
@@ -2118,26 +2139,47 @@ void mp_pe_prepare(void* h, int64_t n_pairs, int64_t nthreads) {
   mp.pe_npairs = n_pairs;
 }
 
-// Build the per-pair anchor lists for end phase e (e = 0: read-1
-// regions anchor read-2 rescues; e = 1: vice versa, including regions
-// rescued during phase 0).  Returns the number of waves.
-// Snapshot BOTH ends' anchor lists up front (bwa's b[0]/b[1]) and
-// return the wave count = the longest anchor list over both ends and
-// all pairs.  The two ends' rescue chains touch DISJOINT region lists
-// (end-0 anchors test/append the end-1 list and vice versa), so wave k
-// batches both ends' k-th anchors into ONE device dispatch — half the
-// round trips of the round-2 per-end phases, with bwa's sequential
-// semantics intact (each list still receives its appends in anchor
-// order).
-int64_t mp_rescue_begin(void* h) {
+// The speculative superset.  Snapshot BOTH ends' anchor lists up front
+// (bwa's b[0]/b[1]), then emit every anchor's tasks, testing skips
+// against the mate lists as they stand before any rescue.  Three facts
+// make one batch of it exact:
+//   1. a task's inputs are the anchor, pes and the mate read, never the
+//      mate's region list (matesw_task);
+//   2. rescue only appends to a list, so skip[r] only turns from false
+//      to true: the tasks bwa's sequential loop runs are a subset of
+//      the tasks not skipped before rescue;
+//   3. the two ends' chains touch disjoint lists (end-0 anchors test
+//      and append the end-1 list and vice versa).
+// mp_rescue_replay then repeats the skip test in anchor order against
+// the growing list and applies the stored results of the live tasks.
+// Each anchor gets four slots: its orientation r's task index, or
+// kSlotSkipped (skipped before rescue: never live later) or kSlotEmpty
+// (an empty window, whatever the list).  Returns the task count; max_q
+// and max_t the longest mate and window.
+constexpr int64_t kSlotSkipped = -1, kSlotEmpty = -2;
+
+static void clear_rescue(MemPipe& mp) {
+  mp.rescue_anchors.clear();
+  mp.rescue_tasks.clear();
+  mp.rescue_out.clear();
+  mp.rescue_have.clear();
+  mp.rescue_used.clear();
+  mp.rescue_slot.clear();
+  mp.rescue_slot_off.clear();
+}
+
+int64_t mp_rescue_begin(void* h, int64_t* max_q, int64_t* max_t) {
   MemPipe& mp = *static_cast<MemPipe*>(h);
   const Opt& o = mp.opt;
   int64_t n_pairs = mp.pe_npairs;
   mp.rescue_anchors.assign((size_t)(2 * n_pairs), {});
-  int64_t waves = 0;
+  mp.rescue_tasks.clear();
+  mp.rescue_slot.clear();
+  mp.rescue_slot_off.assign((size_t)(2 * n_pairs + 1), 0);
   // read index ei covers both ends: end 0 = pairs 0..n-1, end 1 =
   // reads n..2n-1
   for (int64_t ei = 0; ei < 2 * n_pairs; ++ei) {
+    mp.rescue_slot_off[(size_t)ei] = (int64_t)mp.rescue_slot.size();
     auto& regs = mp.per[ei].regions;
     if (regs.empty()) continue;
     int64_t best = regs[0].score;
@@ -2147,25 +2189,33 @@ int64_t mp_rescue_begin(void* h) {
       if (r.score >= best - o.pen_unpaired) anchors.push_back(r);
     if ((int64_t)anchors.size() > o.max_matesw)
       anchors.resize((size_t)o.max_matesw);
-    waves = std::max(waves, (int64_t)anchors.size());
-  }
-  return waves;
-}
-
-int64_t mp_rescue_wave_build(void* h, int64_t k, int64_t* max_q,
-                             int64_t* max_t) {
-  MemPipe& mp = *static_cast<MemPipe*>(h);
-  int64_t n_pairs = mp.pe_npairs;
-  mp.rescue_tasks.clear();
-  for (int64_t ei = 0; ei < 2 * n_pairs; ++ei) {
-    const auto& anchors = mp.rescue_anchors[(size_t)ei];
-    if (k >= (int64_t)anchors.size()) continue;
     // the mate of read ei: end 0 (ei < n_pairs) pairs with ei+n_pairs
     int64_t other = ei < n_pairs ? ei + n_pairs : ei - n_pairs;
-    matesw_emit(mp, mp.pe_stat, anchors[(size_t)k],
-                mp.reads + other * mp.L, mp.qlen[other],
-                mp.per[other].regions, other, mp.rescue_tasks);
+    const uint8_t* mate = mp.reads + other * mp.L;
+    for (const auto& a : anchors) {
+      bool skip[4];
+      matesw_skip(mp, mp.pe_stat, a, mp.per[other].regions, skip);
+      for (int r = 0; r < 4; ++r) {
+        int64_t slot = kSlotSkipped;
+        MemPipe::RescueTask t;
+        if (!skip[r]) {
+          slot = kSlotEmpty;
+          if (matesw_task(mp, mp.pe_stat, a, r, mate, mp.qlen[other],
+                          other, t)) {
+            slot = (int64_t)mp.rescue_tasks.size();
+            mp.rescue_tasks.push_back(std::move(t));
+          }
+        }
+        mp.rescue_slot.push_back(slot);
+      }
+    }
   }
+  mp.rescue_slot_off[(size_t)(2 * n_pairs)] =
+      (int64_t)mp.rescue_slot.size();
+  size_t n = mp.rescue_tasks.size();
+  mp.rescue_out.assign(n, {});
+  mp.rescue_have.assign(n, 0);
+  mp.rescue_used.assign(n, 0);
   int64_t mq = 0, mt = 0;
   for (const auto& t : mp.rescue_tasks) {
     mq = std::max(mq, t.l_ms);
@@ -2173,22 +2223,30 @@ int64_t mp_rescue_wave_build(void* h, int64_t k, int64_t* max_q,
   }
   *max_q = mq;
   *max_t = mt;
-  return (int64_t)mp.rescue_tasks.size();
+  return (int64_t)n;
+}
+
+// A batch is the tasks [off, off + Bp) that exist, in lanes 0.. .
+static int64_t rescue_batch_end(const MemPipe& mp, int64_t off,
+                                int64_t Bp) {
+  return std::min(off + Bp, (int64_t)mp.rescue_tasks.size());
 }
 
 // seq (Bp, lq_pad) / rseq (Bp, lt_pad) row-major int8 (caller
 // zero-filled; the device masks by length); lens (2, Bp) int32 rows
 // [l_ms, l_ts].
 void mp_rescue_fill(void* h, int8_t* seq, int64_t lq_pad, int8_t* rseq,
-                    int64_t lt_pad, int32_t* lens, int64_t Bp) {
+                    int64_t lt_pad, int32_t* lens, int64_t off,
+                    int64_t Bp) {
   MemPipe& mp = *static_cast<MemPipe*>(h);
-  for (size_t i = 0; i < mp.rescue_tasks.size(); ++i) {
-    const auto& t = mp.rescue_tasks[i];
-    std::memcpy(seq + (int64_t)i * lq_pad, t.seq.data(), t.seq.size());
-    std::memcpy(rseq + (int64_t)i * lt_pad, t.rseq.data(),
-                t.rseq.size());
+  int64_t end = rescue_batch_end(mp, off, Bp);
+  for (int64_t j = off; j < end; ++j) {
+    const auto& t = mp.rescue_tasks[(size_t)j];
+    int64_t i = j - off;
+    std::memcpy(seq + i * lq_pad, t.seq.data(), t.seq.size());
+    std::memcpy(rseq + i * lt_pad, t.rseq.data(), t.rseq.size());
     lens[i] = (int32_t)t.l_ms;
-    lens[Bp + (int64_t)i] = (int32_t)t.rseq.size();
+    lens[Bp + i] = (int32_t)t.rseq.size();
   }
 }
 
@@ -2198,33 +2256,106 @@ void mp_rescue_fill(void* h, int8_t* seq, int64_t lq_pad, int8_t* rseq,
 // where win = rb (the window start in two-strand coordinates).  The
 // device gathers seq from the chunk read matrix (revcomp'd in-lane
 // when is_rev) and rseq from the resident text.
-void mp_rescue_fill_idx(void* h, int32_t* meta, int64_t Bp) {
+void mp_rescue_fill_idx(void* h, int32_t* meta, int64_t off, int64_t Bp) {
   MemPipe& mp = *static_cast<MemPipe*>(h);
-  for (size_t i = 0; i < mp.rescue_tasks.size(); ++i) {
-    const auto& t = mp.rescue_tasks[i];
-    meta[0 * Bp + (int64_t)i] = (int32_t)t.l_ms;
-    meta[1 * Bp + (int64_t)i] = (int32_t)t.rseq.size();
-    meta[2 * Bp + (int64_t)i] = (int32_t)t.mate_read;
-    meta[3 * Bp + (int64_t)i] = t.is_rev ? 1 : 0;
-    meta[4 * Bp + (int64_t)i] = (int32_t)(t.rb & 0xFFFFF);
-    meta[5 * Bp + (int64_t)i] = (int32_t)(t.rb >> 20);
+  int64_t end = rescue_batch_end(mp, off, Bp);
+  for (int64_t j = off; j < end; ++j) {
+    const auto& t = mp.rescue_tasks[(size_t)j];
+    int64_t i = j - off;
+    meta[0 * Bp + i] = (int32_t)t.l_ms;
+    meta[1 * Bp + i] = (int32_t)t.rseq.size();
+    meta[2 * Bp + i] = (int32_t)t.mate_read;
+    meta[3 * Bp + i] = t.is_rev ? 1 : 0;
+    meta[4 * Bp + i] = (int32_t)(t.rb & 0xFFFFF);
+    meta[5 * Bp + i] = (int32_t)(t.rb >> 20);
   }
 }
 
-// out6 (6, Bp) int32: [score, qb, qe, tb, te, score2] per task lane.
-void mp_rescue_apply(void* h, const int32_t* out6, int64_t Bp) {
+// out6 (6, Bp) int32: [score, qb, qe, tb, te, score2] per task lane of
+// the batch at `off`; stored against their tasks, no region list moves.
+void mp_rescue_apply(void* h, const int32_t* out6, int64_t off,
+                     int64_t Bp) {
   MemPipe& mp = *static_cast<MemPipe*>(h);
-  for (size_t i = 0; i < mp.rescue_tasks.size(); ++i) {
-    const auto& t = mp.rescue_tasks[i];
-    int64_t o6[6];
-    for (int j = 0; j < 6; ++j) o6[j] = out6[j * Bp + (int64_t)i];
-    matesw_apply(mp, t, o6, mp.per[t.mate_read].regions);
+  int64_t end = rescue_batch_end(mp, off, Bp);
+  for (int64_t j = off; j < end; ++j) {
+    for (int k = 0; k < 6; ++k)
+      mp.rescue_out[(size_t)j][k] = out6[k * Bp + (j - off)];
+    mp.rescue_have[(size_t)j] = 1;
   }
-  mp.rescue_tasks.clear();
+}
+
+[[noreturn]] static void rescue_fault(const char* what, int64_t ei,
+                                      size_t k, int r) {
+  std::fprintf(stderr,
+               "mp_rescue_replay: read end %lld anchor %zu orientation %d: "
+               "%s\n",
+               (long long)ei, k, r, what);
+  std::abort();
+}
+
+// rescue_pairs over the stored results: each read end's anchors in
+// order, the skip test against the mate list as it grows, and the
+// stored result of every orientation still live applied.  Pairs are
+// independent (threaded as mp_rescue_host).  A live task missing from
+// the superset, or without a result, is a logic error: abort.
+// mp_rescue_used counts the results applied a batch.
+void mp_rescue_replay(void* h, int64_t nthreads) {
+  MemPipe& mp = *static_cast<MemPipe*>(h);
+  int64_t n_pairs = mp.pe_npairs;
+  int nt = std::max((int)nthreads, 1);
+  std::atomic<int64_t> next(0);
+  auto end_chain = [&](int64_t ei, int64_t other) {
+    const auto& anchors = mp.rescue_anchors[(size_t)ei];
+    auto& mate_regs = mp.per[other].regions;
+    const int64_t* slot = mp.rescue_slot.data() + mp.rescue_slot_off[ei];
+    for (size_t k = 0; k < anchors.size(); ++k) {
+      bool skip[4];
+      matesw_skip(mp, mp.pe_stat, anchors[k], mate_regs, skip);
+      for (int r = 0; r < 4; ++r) {
+        if (skip[r]) continue;
+        int64_t s = slot[4 * k + r];
+        if (s == kSlotEmpty) continue;
+        if (s == kSlotSkipped)
+          rescue_fault("live task missing from the superset", ei, k, r);
+        if (!mp.rescue_have[(size_t)s])
+          rescue_fault("live task has no stored result", ei, k, r);
+        int64_t o6[6];
+        for (int j = 0; j < 6; ++j) o6[j] = mp.rescue_out[(size_t)s][j];
+        matesw_apply(mp, mp.rescue_tasks[(size_t)s], o6, mate_regs);
+        mp.rescue_used[(size_t)s] = 1;
+      }
+    }
+  };
+  auto worker = [&]() {
+    for (;;) {
+      int64_t i = next.fetch_add(1);
+      if (i >= n_pairs) break;
+      end_chain(i, n_pairs + i);
+      end_chain(n_pairs + i, i);
+    }
+  };
+  if (nt == 1) {
+    worker();
+  } else {
+    std::vector<std::thread> ths;
+    for (int t = 0; t < nt; ++t) ths.emplace_back(worker);
+    for (auto& t : ths) t.join();
+  }
+  std::vector<MemPipe::RescueTask>().swap(mp.rescue_tasks);
+}
+
+// The results of the tasks [off, off + n) that the replay applied.
+int64_t mp_rescue_used(void* h, int64_t off, int64_t n) {
+  MemPipe& mp = *static_cast<MemPipe*>(h);
+  int64_t end = std::min(off + n, (int64_t)mp.rescue_used.size());
+  int64_t c = 0;
+  for (int64_t j = off; j < end; ++j) c += mp.rescue_used[(size_t)j];
+  return c;
 }
 
 // Pairing + record emission using the stored pestat (rescue already
-// done by the wave loop — or skipped when max_matesw == 0).
+// done by mp_rescue_replay or mp_rescue_host — or skipped when
+// max_matesw == 0).
 int64_t mp_finalize_pe_tail(void* h, int64_t n_pairs, int64_t nthreads) {
   MemPipe& mp = *static_cast<MemPipe*>(h);
   int nt = std::max((int)nthreads, 1);
@@ -2246,7 +2377,7 @@ int64_t mp_finalize_pe_tail(void* h, int64_t n_pairs, int64_t nthreads) {
     for (auto& t : ths) t.join();
   }
   mp.stamp(kPair, t0);
-  mp.rescue_anchors.clear();
+  clear_rescue(mp);
   mp.cig_tasks.clear();
   mp.cig_results.clear();
   int64_t n = 0;
@@ -2823,8 +2954,7 @@ void mp_chunk_end(void* h) {
   mp.qlen.clear();
   mp.cur.clear();
   mp.rec_read.clear();
-  mp.rescue_tasks.clear();
-  mp.rescue_anchors.clear();
+  clear_rescue(mp);
   mp.cig_tasks.clear();
   mp.cig_results.clear();
   mp.reads = nullptr;

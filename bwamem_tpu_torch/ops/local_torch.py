@@ -141,9 +141,9 @@ def _align6_host(device, query, qlen, target, tlen, mat, pens):
 
 
 def make_rescue_backend(device):
-    """The device backend of NativePipeline's mem_matesw wave protocol
+    """The device backend of NativePipeline's mem_matesw protocol
     with host-shipped windows (mp_rescue_*; `--device-rescue
-    --ship-ref`) on `device` (a torch.device): takes the wave's padded
+    --ship-ref`) on `device` (a torch.device): takes the batch's padded
     int8 (Bp, lq) mate sequences, (Bp, lt) reference windows and
     (2, Bp) int32 lengths plus the matrix and the four gap penalties,
     returns (6, Bp) int32 numpy [score, qb, qe, tb, te, score2], the

@@ -27,7 +27,7 @@ turn.
 The factories keep the contract NativePipeline reads: `bp_quantum =
 blk_l * n_dev` for the extension backends, `.fused` / `.idx`,
 `dispatches`; the rescue and CIGAR backends need B to be a multiple of
-n_dev (`b_quantum`), which the wave builder's 256-lane buckets are for
+n_dev (`b_quantum`), which the host's 256-lane buckets are for
 n_dev up to 256.  The factories keep no state but their counters, which
 a lock guards, so `--inflight` threads may share one.  The seeder splits
 the reads, the re-seed jobs and the SA rows of a chunk over the devices,
@@ -300,7 +300,7 @@ def make_sharded_cigar_backend(devices):
 
 def make_sharded_rescue_backend(devices):
     """The host-shipped-window mate-rescue backend of NativePipeline's
-    mp_rescue_* waves (local_torch.make_rescue_backend's contract:
+    mp_rescue_* batches (local_torch.make_rescue_backend's contract:
     fn(seq_i8, rseq_i8, lens, mat, o_del, e_del, o_ins, e_ins) -> (6, Bp)
     int32 numpy) with the batched local SW (local_cuda.align6: the kernel
     on a card) split over `devices`.  Bp a multiple of n_dev."""

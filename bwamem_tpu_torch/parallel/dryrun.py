@@ -10,7 +10,7 @@ small simulated world and raises RuntimeError on any difference:
   fused_idx backends: SAM identical to the single-device resident run;
 - one PE chunk with the sharded extension, mate rescue and CIGAR
   backends, host-shipped and resident: SAM identical to the
-  single-device resident run, with rescue waves and CIGAR rounds run;
+  single-device resident run, with rescue batches and CIGAR rounds run;
 - the SE chunk seeded by the sharded device seeder: SAM identical to the
   host-seeded run;
 - the table-sharded regime (ops/smem_sharded.py) forced at this scale:
@@ -165,7 +165,7 @@ def dryrun_multi_device(devices, *, blk_l: int = 128, seed: int = 0):
             f"PE chunk, sharded {name} extension, rescue and CIGAR")
         if not rescue.calls or not cigar.calls:
             raise RuntimeError(f"PE chunk, {name}: {rescue.calls} rescue "
-                               f"waves, {cigar.calls} CIGAR rounds")
+                               f"batches, {cigar.calls} CIGAR rounds")
 
     # the SE chunk seeded by the sharded device seeder
     pipe.seed_fn = dist.make_sharded_device_seeder(devices, po, fm, opt)

@@ -414,8 +414,8 @@ def rescue_pairs(opt: MemOptions, ref: Reference, pes: list[PEStat],
     (bwamem_pair.c): a region rescued by end 0 never becomes an end-1
     anchor within the same pair.  (Round-2 snapshotted per end, a
     parity deviation; the up-front snapshot also makes the two ends'
-    rescue chains independent, which the device wave protocol exploits
-    by batching both ends' wave k into one dispatch.)"""
+    rescue chains independent, which the device rescue protocol's
+    replay relies on.)"""
     anchors2 = []
     for i in (0, 1):
         regs_i = regs2[i]

@@ -1,6 +1,6 @@
 """Device half of the resident-reference paths (the counterpart of
 bwamem_tpu/pipeline/native_driver.py:741-1076): the fused extension, the
-mate-rescue waves and the CIGAR rounds.
+mate-rescue batches and the CIGAR rounds.
 
 The two-strand reference text lives on the device once, nibble-packed
 into 32-bit words (8 base codes per word, built on the host by
@@ -9,7 +9,7 @@ the (16, Bp) lane scalars and the nibble-packed read matrix; the query and
 target windows are gathered on the device and fed to the fused
 extension kernel.  `make_fused_idx_backend` returns the callable that
 `NativePipeline._run_fused` drives unchanged (.fused = .idx = True,
-.bp_quantum).  `make_rescue_idx_backend` (mp_rescue_* waves) and
+.bp_quantum).  `make_rescue_idx_backend` (mp_rescue_* batches) and
 `make_cigar_idx_backend` (mp_cigar_* rounds) work the same way: the host
 ships a (6, Bp) or (8, Bp) meta block, the mate or query segments come
 out of the read matrix and the reference windows out of the text, both
@@ -196,7 +196,7 @@ def make_fused_idx_backend(params, pac, device, blk_l: int = 512, *,
 
 
 def rescue_idx_local(reads_nib, meta, mat, pens, text, *, qmax, tmax):
-    """One resident-reference mate-rescue wave: gather the mate sequence
+    """One resident-reference mate-rescue batch: gather the mate sequence
     from the read matrix (reverse-complemented in-lane when meta row 3 is
     set: 3 - q for codes < 4) and the reference window from the text,
     then run the batched local SW (ops/local_cuda.align6: the kernel on a
@@ -216,7 +216,7 @@ def rescue_idx_local(reads_nib, meta, mat, pens, text, *, qmax, tmax):
 
 def make_rescue_idx_backend(pac, device, *, text_dev=None, tracer=None):
     """Resident-reference device mate rescue on `device`: NativePipeline's
-    mp_rescue_* wave protocol ships only the (6, Bp) meta block; the
+    mp_rescue_* protocol ships only the (6, Bp) meta block; the
     mate sequences and reference windows are gathered on the device.
     Calls take host numpy arrays and return a (6, Bp) int32 numpy array.
     Pass `text_dev` to share the text tensor with the other idx

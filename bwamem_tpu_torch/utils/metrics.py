@@ -20,7 +20,9 @@ device.  Every row has
   seed, chain and plan; 0 its finish: replay, pairing and SAM);
   `n_tasks`, `cells`, `Bp`, `qmax`, `tmax` on a device call's row, and
   `h2d_bytes`, `copies` (its host-to-device copies) where the backend
-  made them; `generation`, `collected` on `gc`.
+  made them; `n_used` on a rescue batch (the results the replay
+  applied, of its `n_tasks` computed); `generation`, `collected` on
+  `gc`.
 
 The kinds, from the CLI down (children indented under their parent):
 
@@ -38,10 +40,11 @@ The kinds, from the CLI down (children indented under their parent):
     host_chunk (finish) replay, rescue, CIGARs, pairing, SAM
       replay, pestat, pair  C++ phases of mp_finalize_pe, mp_pe_prepare,
                             mp_finalize_pe_tail
-      rescue.build        mp_rescue_wave_build
-      rescue_w<k>         a mate-rescue wave's device call
+      rescue.build        mp_rescue_begin: the chunk's task superset, once
+      rescue_w<k>         batch k of it, a device call (one a chunk)
         rescue.fill, rescue.h2d, rescue.launch, rescue.wait
-      rescue.apply        mp_rescue_apply
+      rescue.apply        mp_rescue_apply: the batch's results stored
+      rescue.replay       mp_rescue_replay: bwa's skip test over them
       cigar_r<k>          a CIGAR round's device call
         cigar.fill, cigar.h2d, cigar.launch, cigar.wait
       sam.emit            the SAM text in C++ (mp_emit_sam)
@@ -80,6 +83,8 @@ class Counters:
     band_cells: int = 0
     device_batches: int = 0
     h2d_bytes: int = 0
+    rescue_tasks: int = 0     # device rescue: tasks computed
+    rescue_used: int = 0      # of them, the results the replay applied
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -182,6 +187,14 @@ class Tracer:
         self._keep(t1, t1 - t0, kind, next(self._ids),
                    st[-1].id if st else None, self.chunk, fields)
 
+    def amend(self, sp: Span, **fields) -> None:
+        """Add `fields` to the row of `sp`, a span this thread closed
+        inside a span still open (so no block has written the row yet);
+        `n_used` also goes to the counters' `rescue_used`."""
+        with self._lock:
+            sp.fields.update(fields)
+            self.counters.rescue_used += fields.get("n_used", 0)
+
     def _count(self, kind, fields) -> None:
         with self._lock:
             c = self.counters
@@ -189,6 +202,8 @@ class Tracer:
                 c.tasks += fields["n_tasks"]
                 c.band_cells += fields.get("cells", 0)
                 c.device_batches += 1
+                if kind.startswith("rescue_w"):
+                    c.rescue_tasks += fields["n_tasks"]
             elif kind == "host_chunk":
                 c.reads += fields["reads"]
 

@@ -130,7 +130,7 @@ Phases, each of which fails the run (exit code 1, no result line):
              cigar_r* trace rows present where asked for, some CIGAR
              with an I and some with a D; in each run bwt_local_align6
              launches == rescue_w* rows and bwt_global_cigar launches ==
-             cigar_r* rows, ms a wave and a round beside the host finish;
+             cigar_r* rows, ms a batch and a round beside the host finish;
              the first CIGAR round the resident PE run handed the kernel
              kept, then gated against the plain version and timed
              (path_ms in the CIGAR kernel's entry of the `kernels` line);
@@ -2247,7 +2247,7 @@ def phase_pe_device(tmp, run):
                           ["--device-rescue", "--device-cigar"])]
     runs.append(("SE", pe[:1], ["--device-cigar"]))
     extend_cuda.reset_launches()
-    n_waves = n_rounds = 0
+    n_batches = n_rounds = 0
     # the first CIGAR round of the resident PE run, as it reaches the
     # kernel's wrapper (gated and timed after the runs)
     kept, wrapper = [], global_cuda.global_batch
@@ -2280,23 +2280,23 @@ def phase_pe_device(tmp, run):
                      f"launches against {t.get(kind, (0,))[0]} {kind}* "
                      f"trace rows")
         n = same_sam(plain[label], sam, f"{label} {' '.join(flags)} vs plain")
-        n_waves += got["rescue_w"]
+        n_batches += got["rescue_w"]
         n_rounds += got["cigar_r"]
         log(f"{label} {' '.join(flags)}: SAM byte-identical to the plain run "
             f"(apart from @PG; {n} lines); "
             + "; ".join(f"{k} {t[k][0]} rows == kernel launches, "
                         f"{1e3 * t[k][1] / t[k][0]:.1f} ms a "
-                        f"{'wave' if k == 'rescue_w' else 'round'} "
+                        f"{'batch' if k == 'rescue_w' else 'round'} "
                         f"({1e3 * t[k][1]:.1f} ms in all), largest "
                         f"(Bp, qmax, tmax) {t[k][2]}"
                         for k in ("rescue_w", "cigar_r") if k in t)
             + f"; host finish {t['host_finish'][1]:.3f}s (plain "
               f"{sums[label]['host_finish'][1]:.3f}s)")
-    log(f"device protocols: {n_waves} rescue waves (bwt_local_align6 "
+    log(f"device protocols: {n_batches} rescue batches (bwt_local_align6 "
         f"launches) and {n_rounds} CIGAR rounds (bwt_global_cigar launches) "
         f"over {len(runs)} runs; extension launches "
         f"{dict(extend_cuda.launches)}")
-    return pe, {"local_align6": n_waves, "global_cigar": n_rounds}, \
+    return pe, {"local_align6": n_batches, "global_cigar": n_rounds}, \
         cigar_path_round(kept)
 
 
@@ -2706,13 +2706,13 @@ def phase_multi_device(tmp, run, dev_pe, dev):
             if (not rescue.walls or not cigar.walls
                     or got != (n * len(rescue.walls), n * len(cigar.walls))):
                 fail(f"sharded {name} rescue and CIGAR at n_dev {n}: "
-                     f"{len(rescue.walls)} waves, {len(cigar.walls)} rounds, "
+                     f"{len(rescue.walls)} batches, {len(cigar.walls)} rounds, "
                      f"launches (local_align6, global_cigar) {got}")
             log(f"sharded {name} rescue and CIGAR at n_dev {n}: records == "
                 f"the single-device run's; bwt_local_align6 launches "
-                f"{got[0]} == {n} x {len(rescue.walls)} waves, "
+                f"{got[0]} == {n} x {len(rescue.walls)} batches, "
                 f"bwt_global_cigar {got[1]} == {n} x {len(cigar.walls)} "
-                f"rounds; rescue waves {wall_summary(rescue.walls)}; CIGAR "
+                f"rounds; rescue batches {wall_summary(rescue.walls)}; CIGAR "
                 f"rounds {wall_summary(cigar.walls)}")
 
     # two processes, each its shard from the torch.distributed environment

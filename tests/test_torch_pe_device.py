@@ -1,12 +1,12 @@
 """The device halves of the paired-end protocols through the port's
-NativePipeline on the CPU (plain PyTorch): mate-rescue waves
-(mp_rescue_*, `--device-rescue`) and CIGAR rounds (mp_cigar_*,
+NativePipeline on the CPU (plain PyTorch): the mate-rescue batch and
+its replay (mp_rescue_*, `--device-rescue`) and CIGAR rounds (mp_cigar_*,
 `--device-cigar`), with host-shipped windows and from the resident
 reference, and the 16-bit cell extension on the resident path.  The
 counterparts of tests/test_native_pipe.py's device-rescue, device-CIGAR
 and text-path tests: each SAM must equal, byte for byte, the all-C++ run
 (host rescue, host CIGAR) and the JAX package's device run on the same
-reads, and a counting wrapper shows that a wave or a round really
+reads, and a counting wrapper shows that a batch or a round really
 fired."""
 
 import numpy as np
@@ -248,3 +248,135 @@ def test_i16_resident_backend_refuses_long_reads(world):
     nib = np.zeros((256, 80), np.int8)          # reads of 160 bases
     with pytest.raises(ValueError, match="2\\^14"):
         fn(nib, np.zeros((16, BLK), np.int32), None, (32, 32, 32, 32))
+
+
+# -- the speculative rescue batch and its replay ---------------------------
+
+REP_L = 60000
+REP_TANDEM = 20000                      # 3 x a 60 bp unit: anchors 60 apart
+REP_COPIES = (5000, 12000, 30000, 38000, 46000, 53000)   # a 100 bp family
+
+
+def _mutated(rng, m):
+    """Substituted every 9 bases: no 19-mer seeds, so only rescue places
+    it (tests/test_torch_pipeline.py _pe_reads, kind 2)."""
+    m = m.copy()
+    for p in range(4, len(m), 9):
+        m[p] = (m[p] + 1 + rng.integers(0, 3)) % 4
+    return m
+
+
+@pytest.fixture(scope="module")
+def repeat_world():
+    """A 60 kb contig with a tandem array and a dispersed 100 bp family,
+    and a chunk of pairs: 48 plain FR pairs (insert 300 +- 30) for the
+    insert-size statistics; three whose first end lies in the tandem
+    array, so its anchors sit 60 bases apart and the mate an earlier
+    anchor rescues lies in a later anchor's window (the superset holds
+    tasks the replay drops); and two whose first end is the family,
+    with an anchor at each of its copies.  Every mate of these five is
+    substituted every 9 bases."""
+    from bwamem_tpu.index.build import build_index
+    from bwamem_tpu.index.occ_packed import pack_occ
+    from bwamem_tpu.io.fasta import Contig, Reference
+
+    rng = np.random.default_rng(7)
+    pac = rng.integers(0, 4, REP_L).astype(np.uint8)
+    pac[REP_TANDEM:REP_TANDEM + 180] = np.tile(
+        rng.integers(0, 4, 60).astype(np.uint8), 3)
+    fam = rng.integers(0, 4, 100).astype(np.uint8)
+    for c in REP_COPIES:
+        pac[c:c + 100] = fam
+    ref = Reference(contigs=[Contig("chrA", 0, REP_L)], pac=pac)
+    fm = build_index(pac)
+    world = (ref, fm, pack_occ(fm), None)
+
+    def seg(a, b):
+        return pac[a:b].astype(np.int64)
+
+    away = [(REP_TANDEM - 400, REP_TANDEM + 600)] + [
+        (c - 400, c + 500) for c in REP_COPIES]
+    r1s, r2s = [], []
+    while len(r1s) < 48:
+        pos = int(rng.integers(0, REP_L - 500))
+        if any(a <= pos <= b for a, b in away):
+            continue
+        isize = 300 + int(rng.integers(-30, 30))
+        r1s.append(seg(pos, pos + 100))
+        r2s.append(revcomp_read(seg(pos + isize - 100, pos + isize)))
+    for d in (0, 5, 10):
+        p, isize = REP_TANDEM + d, 300 + d
+        r1s.append(seg(p, p + 100))
+        r2s.append(revcomp_read(_mutated(rng, seg(p + isize - 100,
+                                                  p + isize))))
+    for c in REP_COPIES[:2]:
+        r1s.append(seg(c, c + 100))
+        r2s.append(revcomp_read(_mutated(rng, seg(c + 200, c + 300))))
+    return world, (r1s, r2s)
+
+
+def _traced(opt, world, reads, **kw):
+    """_port's PE run with a counters-only tracer: (SAM lines, counters)."""
+    from bwamem_tpu_torch.utils.metrics import Tracer
+
+    ref, fm, po, _ = world
+    tr = Tracer(None)
+    pipe = native_driver.NativePipeline(opt, ref, fm, po, nthreads=2,
+                                        blk_l=BLK, tracer=tr)
+    return _lines(pipe.align_pairs_chunk(*reads, _ext(opt, ref.pac),
+                                         **kw)), tr.counters
+
+
+@pytest.mark.parametrize("idx", [False, True], ids=["shipped", "idx"])
+def test_pe_device_rescue_replay_drops_speculative_tasks(repeat_world,
+                                                         idx):
+    """A later anchor's window holds the region an earlier anchor's rescue
+    appended: the speculative batch computes tasks that bwa's sequential
+    loop skips, and the replay must drop them.  The SAM equals host
+    rescue (mp_finalize_pe, and mp_rescue_host under device CIGARs) and
+    the JAX package's wave protocol, byte for byte."""
+    world, reads = repeat_world
+    opt = MemOptions()
+    got_fn, jax_fn = _rescue_backends(world, idx)
+    got_fn, calls = _counting(got_fn, 1 if idx else 0)
+    got, ctr = _traced(opt, world, reads, rescue_fn=got_fn)
+    assert ctr.rescue_tasks > ctr.rescue_used > 0, ctr
+    assert len(calls) == 1
+    assert got == _port(opt, world, reads, True)
+    assert got == _port(opt, world, reads, True,
+                        cigar_fn=global_torch.make_cigar_backend(CPU))
+    assert got == _jax(opt, world, reads, True, rescue_fn=jax_fn)
+
+
+def test_pe_device_rescue_one_call_a_chunk(repeat_world):
+    """Ends with five or more anchors within pen_unpaired of their best
+    (a record each, every one of score 100) make one rescue_fn call a
+    chunk, not one per anchor rank."""
+    world, reads = repeat_world
+    opt = MemOptions()
+    fn, calls = _counting(resident.make_rescue_idx_backend(
+        world[0].pac, CPU), 1)
+    got, ctr = _traced(opt, world, reads, rescue_fn=fn)
+    family = [[l for l in rr if int(l.split("\t")[1]) & 0x40]
+              for rr in got[-2:]]
+    assert all(len(f) >= 5 for f in family), family
+    assert all(l.endswith("AS:i:100") for f in family for l in f)
+    assert calls == [(6, 256)] and ctr.device_batches == 2, ctr
+
+
+@pytest.mark.parametrize("idx", [False, True], ids=["shipped", "idx"])
+def test_pe_device_rescue_lane_cap_splits_batches(repeat_world, idx,
+                                                  monkeypatch):
+    """With the lane cap below the superset, the batches split it into
+    several calls and the SAM and the counters stay those of one call."""
+    world, reads = repeat_world
+    opt = MemOptions()
+    fn = _rescue_backends(world, idx)[0]
+    one, ctr1 = _traced(opt, world, reads, rescue_fn=fn)
+    monkeypatch.setattr(native_driver, "RESCUE_LANES", 4)
+    fn, calls = _counting(fn, 1 if idx else 0)
+    split, ctr = _traced(opt, world, reads, rescue_fn=fn)
+    assert len(calls) == -(-ctr1.rescue_tasks // 4) > 1
+    assert split == one
+    assert (ctr.rescue_tasks, ctr.rescue_used) == (ctr1.rescue_tasks,
+                                                   ctr1.rescue_used)

@@ -3,8 +3,9 @@ SE world of tests/test_torch_cli.py, `--backend torch`: every kind
 appears, each child row lies inside its parent and names a row of the
 trace, the C++ phase stamps fall inside the `host_chunk` row of the call
 that made them, a run without `--trace` registers no collection
-callback and writes no file, and a run that fails still writes its rows
-and takes its callback away."""
+callback and writes no file, a run that fails still writes its rows
+and takes its callback away, and device rescue makes one batch a chunk
+whose computed and applied tasks the counters sum."""
 
 import collections
 import contextlib
@@ -41,7 +42,8 @@ CASES = {
     "pe_device": (["--device-rescue", "--device-cigar"], True,
                   TOP | HOST | CALL | {"replay", "pestat", "pair",
                                        "rescue.build", "rescue.fill",
-                                       "rescue.apply", "cigar.fill"}),
+                                       "rescue.apply", "rescue.replay",
+                                       "cigar.fill"}),
     # host rescue: mp_finalize_pe
     "pe_host": ([], True, TOP | HOST | {"replay", "pestat", "pair"}
                 | {c for c in CALL if c.startswith("fused")}),
@@ -68,21 +70,23 @@ class _Out(io.StringIO):
 
 def _mem(files, flags, mates, trace=None):
     """The port's mem on the world, 16 reads (pairs) a chunk: (stdout,
-    the collection callbacks before the run)."""
+    the collection callbacks before the run); stdout's `err` holds the
+    standard error."""
     args, mate_file, *_ = files
-    out, before = _Out(), len(gc.callbacks)
-    with contextlib.redirect_stdout(out), \
-            contextlib.redirect_stderr(io.StringIO()):
+    out, before, err = _Out(), len(gc.callbacks), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = main(["mem", "--backend", "torch", "-b", "16", *flags,
                    *(["--trace", trace] if trace else []), *args,
                    *(mate_file if mates else [])])
     assert rc == 0
+    out.err = err.getvalue()
     return out, before
 
 
 @pytest.fixture(scope="module")
-def traces(hard_files):  # noqa: F811
-    """{case: rows of its trace}, each case run once."""
+def runs(hard_files):  # noqa: F811
+    """{case: (rows of its trace, its `[mem] counters` line)}, each case
+    run once."""
     *files, tmp = hard_files
     got = {}
     for case, (flags, mates, _) in CASES.items():
@@ -91,8 +95,16 @@ def traces(hard_files):  # noqa: F811
         assert set(out.callbacks) == {before + 1}     # the tracer's own
         assert len(gc.callbacks) == before            # gone at close
         with open(path) as f:
-            got[case] = [json.loads(line) for line in f]
+            rows = [json.loads(line) for line in f]
+        line = out.err.split("[mem] counters: ")[1].splitlines()[0]
+        got[case] = rows, json.loads(line)
     return got
+
+
+@pytest.fixture(scope="module")
+def traces(runs):
+    """{case: rows of its trace}."""
+    return {case: rows for case, (rows, _) in runs.items()}
 
 
 def _kinds(rows):
@@ -221,3 +233,26 @@ def test_rows_written_in_blocks(tmp_path, monkeypatch):
     assert [r["kind"] for r in rest] == ["trace.flush", "seed"]
     assert rest[0]["rows"] == 7
     assert metrics.span(None, "x") is metrics.span(None, "y")
+
+
+def test_rescue_batches_and_their_use(runs):
+    """Device rescue makes one batch a chunk here (the superset is far
+    below the lane cap): `rescue.build` and `rescue.replay` once a
+    chunk, at most one `rescue_w<k>` row, each with `n_tasks` computed
+    and `n_used` applied, whose sums are the counters' `rescue_tasks`
+    and `rescue_used`; a run without device rescue counts none."""
+    rows, ctr = runs["pe_device"]
+    kinds = _kinds(rows)
+    chunks = kinds["host_chunk"] // 2
+    assert kinds["rescue.build"] == kinds["rescue.replay"] == chunks > 1
+    batches = [r for r in rows if r["kind"].startswith("rescue_w")]
+    assert batches and {r["kind"] for r in batches} == {"rescue_w0"}
+    assert len({r["chunk"] for r in batches}) == len(batches) <= chunks
+    for r in batches:
+        assert 0 <= r["n_used"] <= r["n_tasks"] <= r["Bp"], r
+    assert ctr["rescue_tasks"] == sum(r["n_tasks"] for r in batches) > 0
+    assert ctr["rescue_used"] == sum(r["n_used"] for r in batches) > 0
+    for case in ("pe_host", "se"):
+        assert runs[case][1]["rescue_tasks"] == 0
+        assert runs[case][1]["rescue_used"] == 0
+        assert not _kinds(runs[case][0])["rescue.build"]

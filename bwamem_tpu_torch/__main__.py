@@ -318,8 +318,14 @@ def _mem(args, cleanup) -> int:
     pair_iter = None
     if args.p and not args.mates:
         # -p: one file of interleaved pairs — de-interleave per chunk
-        pair_iter = ((c[0::2], c[1::2]) for c in iter_fastq_chunks(
-            args.reads, 2 * args.b, tracer=tracer))
+        def deinterleave(chunks):
+            for c in chunks:
+                with span(tracer, "input.parse"):
+                    ends = c[0::2], c[1::2]
+                yield ends
+
+        pair_iter = deinterleave(iter_fastq_chunks(args.reads, 2 * args.b,
+                                                   tracer=tracer))
     elif args.mates:
         pair_iter = zip(iter_fastq_chunks(args.reads, args.b, tracer=tracer),
                         iter_fastq_chunks(args.mates, args.b, tracer=tracer))
@@ -418,11 +424,15 @@ def _mem(args, cleanup) -> int:
                 if manifest.is_done(rr):
                     continue
             with span(tracer, "chunk.prep"):
-                kw = dict(names=[r.name for r in chunk],
-                          quals1=[r.qual for r in chunk],
-                          quals2=[m.qual for m in mchunk])
-                seqs1 = [r.seq.astype(np.int64) for r in chunk]
-                seqs2 = [m.seq.astype(np.int64) for m in mchunk]
+                if on_python:
+                    kw = dict(names=[r.name for r in chunk],
+                              quals1=[r.qual for r in chunk],
+                              quals2=[m.qual for m in mchunk])
+                    seqs1 = [r.seq.astype(np.int64) for r in chunk]
+                    seqs2 = [m.seq.astype(np.int64) for m in mchunk]
+                else:
+                    # the native host takes the batches' columns
+                    seqs1, seqs2, kw = chunk, mchunk, {}
             text = None
             if on_python:
                 recs = align_pairs(opt, ref, fm, seqs1, seqs2, po=po,
@@ -469,9 +479,13 @@ def _mem(args, cleanup) -> int:
             if tracer is not None:
                 tracer.chunk = ci          # this worker thread's chunk
             with span(tracer, "chunk.prep"):
-                seqs = [r.seq.astype(np.int64) for r in chunk]
-                kw = dict(names=[r.name for r in chunk],
-                          quals=[r.qual for r in chunk])
+                if on_python:
+                    seqs = [r.seq.astype(np.int64) for r in chunk]
+                    kw = dict(names=[r.name for r in chunk],
+                              quals=[r.qual for r in chunk])
+                else:
+                    # the native host takes the batch's columns
+                    seqs, kw = chunk, {}
             if on_python and ext_fn is None:
                 return [A.align_read(opt, ref, fm, r.name, sq, r.qual)
                         for r, sq in zip(chunk, seqs)]

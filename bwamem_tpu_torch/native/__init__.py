@@ -4,8 +4,10 @@ The host sources are csrc/*.cpp at the repository's root (they belong to
 neither Python package: they are read and compiled, not imported), each
 replaced by the port's own copy where this directory holds a .cpp of the
 same name: mempipe.cpp, which adds the phase stamps of `mem --trace`
-(mp_phase_stamps).  The library builds lazily with g++ on first use into the port's own
-gitignored build directory, bwamem_tpu_torch/build/libbwamem_host.so,
+(mp_phase_stamps), and fastq.cpp, which adds the packed parse of the
+port's chunk loop (bwamem_fastq_pack, bwamem_fastq_cut).  The library
+builds lazily with g++ on first use into the port's own gitignored
+build directory, bwamem_tpu_torch/build/libbwamem_host.so,
 and rebuilds when a source is newer.  The build writes a temporary file
 and renames it, so processes that start together never load a half
 written library.  A process that also loads the JAX package's copy of
@@ -92,6 +94,7 @@ def get_lib():
             lib.bwamem_fastq_scan.argtypes = [
                 ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
                 ctypes.POINTER(ctypes.c_int64)]
+            _bind_fastq(lib)
             _bind_smem(lib)
             _bind_ksw(lib)
             _bind_mempipe(lib)
@@ -161,6 +164,57 @@ def fastq_scan(buf: bytes, max_rec: int = 1 << 22):
     if n < 0:
         return None
     return int(n), off[:n]
+
+
+def _bind_fastq(lib):
+    p8 = ctypes.POINTER(ctypes.c_uint8)
+    p64 = ctypes.POINTER(ctypes.c_int64)
+    i64 = ctypes.c_int64
+    lib.bwamem_fastq_cut.restype = i64
+    lib.bwamem_fastq_cut.argtypes = [ctypes.c_char_p, i64, p64]
+    lib.bwamem_fastq_pack.restype = i64
+    lib.bwamem_fastq_pack.argtypes = [ctypes.c_char_p, i64, i64] + \
+        [p8, p64] * 4 + [p8]
+
+
+def fastq_cut(buf: bytes):
+    """(cut, lines): the byte just past the last newline that closes a
+    whole 4-line FASTQ record (0 if none), and the newlines before it;
+    None when the library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    lines = ctypes.c_int64()
+    cut = lib.bwamem_fastq_cut(buf, len(buf), ctypes.byref(lines))
+    return int(cut), int(lines.value)
+
+
+def fastq_pack(buf: bytes, n: int, max_rec: int):
+    """The records of buf[:n] as columns in one native pass: (codes,
+    seq_off, names, name_off, quals, qual_off, comments, comment_off,
+    has_qual), uint8 blobs with int64 offsets from 0 (see
+    native/fastq.cpp); None when the library is unavailable, the buffer
+    is malformed or holds more than max_rec records."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    p8 = ctypes.POINTER(ctypes.c_uint8)
+    p64 = ctypes.POINTER(ctypes.c_int64)
+    cols = []
+    for _ in range(4):
+        cols += [np.empty(n, np.uint8), np.empty(max_rec + 1, np.int64)]
+    has_qual = np.empty(max_rec, np.uint8)
+    got = lib.bwamem_fastq_pack(
+        buf, n, max_rec,
+        *(c.ctypes.data_as(p8 if c.dtype == np.uint8 else p64)
+          for c in cols), has_qual.ctypes.data_as(p8))
+    if got < 0:
+        return None
+    out = []
+    for blob, off in zip(cols[0::2], cols[1::2]):
+        off = off[:got + 1]
+        out += [blob[:off[-1]], off]
+    return (*out, has_qual[:got].view(np.bool_))
 
 
 def _bind_ksw(lib):

@@ -307,7 +307,7 @@ def make_table_sharded_seeder(devices, po, fm, opt):
     """Device seeding with the tables split by block range over
     `devices` (every pair of cards with peer access, which this enables;
     RuntimeError otherwise) and each chunk's rows split over them: the
-    `seed_fn(reads) -> (n, 4) int64 rows` of smem_cuda.make_device_seeder,
+    `seed_fn(q, qlen) -> (n, 4) int64 rows` of smem_cuda.make_device_seeder,
     equal to it in value and order, with no 2^31-row cap."""
     devices = dist.device_list(devices)
     enable_peer_access(devices)

@@ -709,7 +709,7 @@ def occurrences(mems, max_occ: int):
     return idx, np.ascontiguousarray(rows, np.int64)
 
 
-def collect_seeds_device(progs, exact, reads, min_seed_len: int,
+def collect_seeds_device(progs, exact, q, qlen, min_seed_len: int,
                          split_len: int, split_width: int, max_occ: int,
                          stats=None, tracer=None):
     """Device seeding of a chunk: the (n, 4) int64 seed rows {read_idx,
@@ -719,14 +719,10 @@ def collect_seeds_device(progs, exact, reads, min_seed_len: int,
     in a re-seed job, is seeded whole by `exact` (exact_seeder), and its
     rows take its place in read order.  Under `tracer`, the calls are the
     spans seed.smem_all, seed.reseed (a round), seed.sa and seed.exact,
-    and the counts go to the span open around the call (Tracer.note)."""
-    B = len(reads)
-    L = max([len(r) for r in reads] + [1])
-    q = np.full((B, L), 4, np.uint8)
-    qlen = np.zeros(B, np.int64)
-    for b, r in enumerate(reads):
-        q[b, :len(r)] = r
-        qlen[b] = len(r)
+    and the counts go to the span open around the call (Tracer.note).
+    `q`, `qlen`: the chunk's (B, L) uint8 code matrix (4 past each read's
+    end) and (B,) int64 read lengths, as NativePipeline holds them."""
+    B = len(q)
     # the kernels count the block records they read only under a tracer
     rec = None if tracer is None else progs.counter()
     mems, bad, counts = device_smems(progs, q, qlen, min_seed_len,
@@ -761,14 +757,15 @@ def split_len_of(opt) -> int:
 
 
 def seeder(progs, exact, opt):
-    """A `seed_fn(reads, tracer=None) -> (n, 4) int64 rows` for
-    NativePipeline.seed_fn over `progs`, the overflowed reads seeded by
+    """A `seed_fn(q, qlen, tracer=None) -> (n, 4) int64 rows` for
+    NativePipeline.seed_fn over `progs` (q and qlen as
+    collect_seeds_device takes them), the overflowed reads seeded by
     `exact` (exact_seeder); its Stats are `seed_fn.stats`."""
     stats = Stats()
     split_len = split_len_of(opt)
 
-    def seed_fn(reads, tracer=None):
-        return collect_seeds_device(progs, exact, reads, opt.min_seed_len,
+    def seed_fn(q, qlen, tracer=None):
+        return collect_seeds_device(progs, exact, q, qlen, opt.min_seed_len,
                                     split_len, opt.split_width, opt.max_occ,
                                     stats, tracer)
 

@@ -447,7 +447,7 @@ class ShardedPrograms(smem_cuda.Programs):
 def make_sharded_device_seeder(devices, po, fm, opt,
                                table_sharded: bool | None = None):
     """Device seeding with each chunk's reads, re-seed jobs and SA rows
-    split over `devices`: the `seed_fn(reads) -> (n, 4) int64 rows` of
+    split over `devices`: the `seed_fn(q, qlen) -> (n, 4) int64 rows` of
     smem_cuda.make_device_seeder, rows equal to the single-device
     seeder's in value and order.  Two regimes, as the JAX package's:
 

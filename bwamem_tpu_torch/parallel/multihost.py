@@ -75,43 +75,41 @@ def shard_reads(n_reads: int, shard: int, n_shards: int) -> range:
     return range(shard, n_reads, n_shards)
 
 
-def shard_chunk_stream(chunks, shard: int, n_shards: int, b: int):
-    """Filter a chunked read stream down to this shard's strided
-    assignment (shard_reads order: global read index = shard +
-    n_shards * local index) and re-chunk to batches of `b`.  Every
-    shard streams the same file; only 1/n of the reads are decoded
-    into batches, so the skipped reads cost parse time only."""
-    buf = []
+def _shard_ends(tuples, shard: int, n_shards: int, b: int):
+    """Tuples of io/fastq.ReadBatches (the ends of one run of reads, or
+    of pairs) filtered to this shard's strided share and re-cut to b."""
+    from bwamem_tpu_torch.io.fastq import ReadBatch
+
+    buf = None
     gi = 0
-    for chunk in chunks:
-        for r in chunk:
-            if gi % n_shards == shard:
-                buf.append(r)
-                if len(buf) == b:
-                    yield buf
-                    buf = []
-            gi += 1
-    if buf:
+    for ends in tuples:
+        mine = [e[(shard - gi) % n_shards::n_shards] for e in ends]
+        gi += len(ends[0])
+        buf = mine if buf is None else [ReadBatch.concat([x, y])
+                                        for x, y in zip(buf, mine)]
+        while len(buf[0]) >= b:
+            yield [x[:b] for x in buf]
+            buf = [x[b:] for x in buf]
+    if buf is not None and len(buf[0]):
         yield buf
+
+
+def shard_chunk_stream(chunks, shard: int, n_shards: int, b: int):
+    """Filter a chunked read stream (io/fastq.ReadBatches) down to this
+    shard's strided assignment (shard_reads order: global read index =
+    shard + n_shards * local index) and re-chunk to batches of `b`,
+    gathered column by column.  Every shard streams the same file; the
+    skipped reads cost parse time only."""
+    for (c,) in _shard_ends(((c,) for c in chunks), shard, n_shards, b):
+        yield c
 
 
 def shard_pair_stream(pair_iter, shard: int, n_shards: int, b: int):
     """PE version of shard_chunk_stream: the unit of assignment is the
     PAIR (a pair's whole lifecycle — pestat, rescue, pairing — stays on
     one shard)."""
-    buf1, buf2 = [], []
-    gi = 0
-    for chunk, mchunk in pair_iter:
-        for r, m in zip(chunk, mchunk):
-            if gi % n_shards == shard:
-                buf1.append(r)
-                buf2.append(m)
-                if len(buf1) == b:
-                    yield buf1, buf2
-                    buf1, buf2 = [], []
-            gi += 1
-    if buf1:
-        yield buf1, buf2
+    for c1, c2 in _shard_ends(pair_iter, shard, n_shards, b):
+        yield c1, c2
 
 
 def merge_sams(shard_iters: Sequence[Iterator[list[str]]],

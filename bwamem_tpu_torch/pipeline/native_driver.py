@@ -7,8 +7,12 @@ phase stamps of `mem --trace`) with the batched extension on the device
 between phases: the host's C threads seed, chain and emit SAM while the
 GPU runs the banded extension.  The Python layer owns FASTQ I/O, the
 backend call and final SAM-line assembly; everything else crosses into
-the host library once per chunk phase.  It drives any backend callable
-with the attributes it looks for (`.fused`, `.idx`, `.bp_quantum`):
+the host library once per chunk phase.  A chunk's reads are an
+io/fastq.ReadBatch, whose code matrix and name and quality blobs go to
+the library as they are; a list of base-code arrays (names and
+qualities as lists beside it) is made into one at entry.  It drives
+any backend callable with the attributes it looks for (`.fused`,
+`.idx`, `.bp_quantum`):
 
 - `make_raw_t_backend`: the four-pass protocol (`_run_phase`): L0, the
   compacted L retry, R0, the compacted R retry, each one `extend_t`
@@ -57,6 +61,7 @@ from bwamem_tpu_torch import native
 from bwamem_tpu_torch.config import MemOptions
 from bwamem_tpu_torch.device import to_device
 from bwamem_tpu_torch.io.fasta import Reference
+from bwamem_tpu_torch.io.fastq import ReadBatch, join_ragged
 from bwamem_tpu_torch.io.sam import SamLine, SamRecord
 from bwamem_tpu_torch.ops import extend_cuda
 from bwamem_tpu_torch.ops.types import params_vector
@@ -156,15 +161,10 @@ class NativePipeline:
 
     # -- device phase loop ------------------------------------------------
 
-    def _chunk_start(self, reads):
+    def _chunk_start(self, batch):
         with span(self.tracer, "chunk.pack"):
-            n = len(reads)
-            L = max((len(r) for r in reads), default=1)
-            mat = np.full((n, L), 4, np.uint8)
-            qlen = np.zeros(n, np.int64)
-            for i, r in enumerate(reads):
-                mat[i, :len(r)] = r
-                qlen[i] = len(r)
+            mat, qlen = batch.matrix()
+        n, L = mat.shape
         self._reads_mat = mat  # keep alive: C++ keeps pointers
         self._reads_nib = None  # lazy per-chunk nibble-packed copy
         self._qlen = qlen
@@ -173,7 +173,7 @@ class NativePipeline:
             # skip the C++ SMEM engine
             with span(self.tracer, "seed.device", n_reads=n):
                 rows = np.ascontiguousarray(
-                    self.seed_fn(reads, tracer=self.tracer), np.int64)
+                    self.seed_fn(mat, qlen, tracer=self.tracer), np.int64)
             rc = self.lib.mp_chunk_start_seeded(
                 self.h, mat.ctypes.data_as(_P8),
                 qlen.ctypes.data_as(_P64), n, L,
@@ -407,9 +407,13 @@ class NativePipeline:
         out[:, idx_small] = np.asarray(rs)[:, :ns]
         return out
 
-    def _extend(self, reads, raw_t_fn):
-        with span(self.tracer, "host_chunk", reads=len(reads)):
-            self._chunk_start(reads)
+    def _extend(self, batch, raw_t_fn, packed: bool):
+        """The chunk's start and extension; `packed`: the batch came as
+        one, not made from lists."""
+        n = len(batch)
+        with span(self.tracer, "host_chunk", reads=n,
+                  packed_reads=n if packed else 0):
+            self._chunk_start(batch)
         if getattr(raw_t_fn, "fused", False):
             self._run_fused(raw_t_fn)
             return
@@ -436,13 +440,15 @@ class NativePipeline:
         With ``cigar_fn`` (a device CIGAR backend) the
         reg2aln banded-global realignments run ON DEVICE through the
         mp_cigar_* round protocol (band-doubling retries compacted
-        across the chunk) instead of host C; output is byte-identical."""
-        names = names or [f"read{i}" for i in range(len(reads))]
-        quals = quals or [None] * len(reads)
-        self._extend(reads, raw_t_fn)
+        across the chunk) instead of host C; output is byte-identical.
+
+        ``reads``: a ReadBatch, or a list of base-code arrays with
+        ``names`` and ``quals`` beside it (_batch)."""
+        batch = _batch(reads, names, quals, "read")
+        self._extend(batch, raw_t_fn, batch is reads)
         with span(self.tracer, "host_chunk", reads=0):
             nrec = self._finish_se(cigar_fn)
-            out = self._collect(nrec, len(reads), reads, names, quals)
+            out = self._collect(nrec, len(batch), _sam_cols(batch))
             self.lib.mp_chunk_end(self.h)
         return out
 
@@ -452,20 +458,19 @@ class NativePipeline:
         as ONE newline-terminated text blob (already in output order)
         plus the record count — no per-record Python at all.  Byte
         parity with align_chunk is pinned by test_native_pipe."""
-        names = names or [f"read{i}" for i in range(len(reads))]
-        quals = quals or [None] * len(reads)
-        self._extend(reads, raw_t_fn)
+        batch = _batch(reads, names, quals, "read")
+        self._extend(batch, raw_t_fn, batch is reads)
         with span(self.tracer, "host_chunk", reads=0):
             nrec = self._finish_se(cigar_fn)
-            text = self._text(nrec, names, quals)
+            text = self._text(nrec, _sam_cols(batch))
             self.lib.mp_chunk_end(self.h)
         return text, int(nrec)
 
-    def _text(self, nrec, names, quals) -> str:
+    def _text(self, nrec, cols) -> str:
         """The chunk's records as one newline-terminated SAM blob."""
         if not nrec:
             return ""
-        return self._emit_blob(nrec, names, quals, newline=True)[0]
+        return self._emit_blob(nrec, cols, newline=True)[0]
 
     def _device_cigar_rounds(self, n_active, cigar_fn):
         """reg2aln band-doubling retry as compacted device rounds: the
@@ -565,18 +570,15 @@ class NativePipeline:
         ``cigar_fn`` (a device CIGAR backend) the sam_pe
         reg2aln banded globals run as device rounds over the superset
         of candidate regions (selection happens later, inside
-        sam_pe)."""
+        sam_pe).  ``reads1`` / ``reads2`` as align_chunk takes its
+        reads (_pair_batch)."""
         n = len(reads1)
-        names = names or [f"pair{i}" for i in range(n)]
-        quals1 = quals1 or [None] * n
-        quals2 = quals2 or [None] * n
-        reads = list(reads1) + list(reads2)
-        all_names = names + names
-        all_quals = list(quals1) + list(quals2)
-        self._extend(reads, raw_t_fn)
+        batch, cols, packed = _pair_batch(reads1, reads2, names, quals1,
+                                          quals2)
+        self._extend(batch, raw_t_fn, packed)
         with span(self.tracer, "host_chunk", reads=0):
             nrec = self._finish_pe(n, rescue_fn, cigar_fn)
-            out = self._collect(nrec, n, reads, all_names, all_quals)
+            out = self._collect(nrec, n, cols)
             self.lib.mp_chunk_end(self.h)
         return out
 
@@ -587,16 +589,12 @@ class NativePipeline:
         """align_pairs_chunk's zero-object fast path (see
         align_chunk_text)."""
         n = len(reads1)
-        names = names or [f"pair{i}" for i in range(n)]
-        quals1 = quals1 or [None] * n
-        quals2 = quals2 or [None] * n
-        reads = list(reads1) + list(reads2)
-        all_names = names + names
-        all_quals = list(quals1) + list(quals2)
-        self._extend(reads, raw_t_fn)
+        batch, cols, packed = _pair_batch(reads1, reads2, names, quals1,
+                                          quals2)
+        self._extend(batch, raw_t_fn, packed)
         with span(self.tracer, "host_chunk", reads=0):
             nrec = self._finish_pe(n, rescue_fn, cigar_fn)
-            text = self._text(nrec, all_names, all_quals)
+            text = self._text(nrec, cols)
             self.lib.mp_chunk_end(self.h)
         return text, int(nrec)
 
@@ -676,49 +674,44 @@ class NativePipeline:
                 tr.amend(sp, n_used=int(self.lib.mp_rescue_used(
                     self.h, off, n)))
 
-    def _emit_blob(self, nrec, names, quals, newline=False):
+    def _emit_blob(self, nrec, cols, newline=False):
         """Render the chunk's records as one SAM text blob in C++
         (mp_emit_sam, -t threads), in final output order (records are
-        flattened read-by-read / pair-by-pair).  Returns (text, line
-        offsets, record->group map); `newline=True` terminates every
-        line so the blob streams directly."""
+        flattened read-by-read / pair-by-pair).  `cols`: the name and
+        quality blobs and offsets of each read (_sam_cols; an empty
+        quality is '*').  Returns (text, line offsets, record->group
+        map); `newline=True` terminates every line so the blob streams
+        directly."""
         with span(self.tracer, "sam.emit"):
-            name_off = np.zeros(len(names) + 1, np.int64)
-            np.cumsum([len(s) for s in names], out=name_off[1:])
-            name_blob = "".join(names).encode("ascii")
-            qual_blob = None
-            qual_off_p = None
-            if any(quals):
-                qual_off = np.zeros(len(quals) + 1, np.int64)
-                np.cumsum([len(q) if q else 0 for q in quals],
-                          out=qual_off[1:])
-                qual_blob = "".join(q or "" for q in quals).encode("ascii")
-                qual_off_p = qual_off.ctypes.data_as(_P64)
+            names, name_off, quals, qual_off = (np.ascontiguousarray(c)
+                                                for c in cols)
             cap = int(self.lib.mp_sam_size(
                 self.h, name_off.ctypes.data_as(_P64))) + nrec
             buf = ctypes.create_string_buffer(max(cap, 1))
             line_off = np.zeros(nrec + 1, np.int64)
             group = np.zeros(nrec, np.int64)
             self.lib.mp_emit_sam(
-                self.h, name_blob, name_off.ctypes.data_as(_P64), qual_blob,
-                qual_off_p, buf, line_off.ctypes.data_as(_P64),
+                self.h, names.ctypes.data_as(ctypes.c_char_p),
+                name_off.ctypes.data_as(_P64),
+                quals.ctypes.data_as(ctypes.c_char_p),
+                qual_off.ctypes.data_as(_P64), buf,
+                line_off.ctypes.data_as(_P64),
                 group.ctypes.data_as(_P64), self.nthreads,
                 1 if newline else 0)
             text = buf.raw[:int(line_off[nrec])].decode("ascii")
             return text, line_off, group
 
-    def _collect(self, nrec, n_groups, reads, names, quals):
+    def _collect(self, nrec, n_groups, cols):
         """SAM lines for the chunk, grouped by read (SE) / pair (PE).
 
         The whole aln2sam assembly (seq/qual orientation, hard clips,
         tags) runs in C++; Python only slices the returned text blob —
         one SamLine object per record is the entire per-record Python
         cost (align_chunk_text skips even that)."""
-        del reads
         out: list[list] = [[] for _ in range(n_groups)]
         if nrec == 0:
             return out
-        text, line_off, group = self._emit_blob(nrec, names, quals)
+        text, line_off, group = self._emit_blob(nrec, cols)
         off = line_off.tolist()
         for i, g in enumerate(group.tolist()):
             out[g].append(SamLine(text[off[i]:off[i + 1]]))
@@ -729,11 +722,12 @@ class NativePipeline:
     def regions_chunk(self, reads, raw_t_fn) -> list[list[Region]]:
         """Extension + replay, exporting deduped score-sorted regions
         (compute_regions equivalent) for the Python PE machinery."""
-        self._extend(reads, raw_t_fn)
+        batch = _batch(reads, None, None, "read")
+        self._extend(batch, raw_t_fn, batch is reads)
         n = self.lib.mp_region_count(self.h, self.nthreads)
         rows = np.zeros((max(n, 1), 10), np.int64)
         self.lib.mp_export_regions(self.h, rows.ctypes.data_as(_P64))
-        out: list[list[Region]] = [[] for _ in reads]
+        out: list[list[Region]] = [[] for _ in range(len(batch))]
         for i in range(n):
             (ri, rb, re, qb, qe, score, truesc, w, seedcov,
              seedlen0) = (int(x) for x in rows[i])
@@ -742,6 +736,33 @@ class NativePipeline:
                                   seedlen0=seedlen0))
         self.lib.mp_chunk_end(self.h)
         return out
+
+
+def _batch(reads, names, quals, prefix) -> ReadBatch:
+    """`reads` as a ReadBatch: itself, or one made from a list of
+    base-code arrays with its `names` (default <prefix><i>) and `quals`
+    (default none, written '*')."""
+    if isinstance(reads, ReadBatch):
+        return reads
+    return ReadBatch.from_arrays(
+        reads, names or [f"{prefix}{i}" for i in range(len(reads))], quals)
+
+
+def _sam_cols(batch):
+    """(names, name_off, quals, qual_off): mp_emit_sam's columns."""
+    return batch.names, batch.name_off, batch.quals, batch.qual_off
+
+
+def _pair_batch(reads1, reads2, names, quals1, quals2):
+    """A PE chunk's two ends joined into one batch (read i's mate is read
+    n + i), its SAM columns (both ends take the first end's names), and
+    whether both ends came as batches."""
+    b1 = _batch(reads1, names, quals1, "pair")
+    b2 = _batch(reads2, names, quals2, "pair")
+    batch = ReadBatch.concat([b1, b2])
+    cols = (*join_ragged([(b1.names, b1.name_off)] * 2), batch.quals,
+            batch.qual_off)
+    return batch, cols, b1 is reads1 and b2 is reads2
 
 
 def make_raw_t_backend(params, device, blk_l: int = 512, *,

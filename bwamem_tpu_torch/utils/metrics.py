@@ -17,7 +17,9 @@ device.  Every row has
   else null) and `chunk` (the CLI loop's chunk number in that thread,
   else null);
 - the kind's own fields: `reads` on `host_chunk` (> 0 the chunk's start:
-  seed, chain and plan; 0 its finish: replay, pairing and SAM);
+  seed, chain and plan; 0 its finish: replay, pairing and SAM) and
+  `packed_reads` on its start (its reads, where they came as an
+  io/fastq.ReadBatch, not as lists made into one; else 0);
   `n_tasks`, `cells`, `Bp`, `qmax`, `tmax` on a device call's row, and
   `h2d_bytes`, `copies` (its host-to-device copies) where the backend
   made them; `n_used` on a rescue batch (the results the replay
@@ -31,10 +33,12 @@ device.  Every row has
 The kinds, from the CLI down (children indented under their parent):
 
     input.read          blocked in the FASTQ stream's read (io/fastq.py)
-    input.parse         records parsed and sliced into chunks
-    chunk.prep          the names, qualities and base lists of a chunk
+    input.parse         a block's records parsed into columns (C++), and
+                        the chunks cut from them
+    chunk.prep          a chunk's inputs: a ReadBatch as it is, or the
+                        names, qualities and base lists of the Python host
     host_chunk (start)  NativePipeline._chunk_start
-      chunk.pack          the read matrix packed in Python
+      chunk.pack          the read matrix of the chunk's ReadBatch
       seed.device         `--device-seed`: the seeder's call
         seed.smem_all       the reads' copy in, bwt_smem_all, copy back
         seed.reseed         a re-seed round: bwt_smem1 and its copies
@@ -97,6 +101,8 @@ class Counters:
     seed_reads: int = 0       # device seeding: reads seeded
     seed_ovf_reads: int = 0   # of them, first rounds that overflowed
     seed_records: int = 0     # block records the seeding kernels read
+    packed_reads: int = 0     # reads that reached NativePipeline as a
+    #                           ReadBatch (of `reads`)
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -218,6 +224,7 @@ class Tracer:
                     c.rescue_tasks += fields["n_tasks"]
             elif kind == "host_chunk":
                 c.reads += fields["reads"]
+                c.packed_reads += fields.get("packed_reads", 0)
             elif kind == "seed.device":
                 c.seed_reads += fields["n_reads"]
                 c.seed_ovf_reads += fields.get("ovf_reads", 0)

@@ -845,7 +845,7 @@ def phase_seed_kernels(dev):
     # the seeder's rows against the C++ engine's, and the SA walks of
     # the gate's seeds
     seed_fn = smem_cuda.make_device_seeder(po, fm, opt, dev)
-    rows = seed_fn(reads)
+    rows = seed_fn(mat, qlen)
     n, want_rows = native.collect_seeds_native(
         po, fm.ssa, fm.sa_intv, mat, qlen, opt.min_seed_len,
         smem_torch.split_len_of(opt), opt.split_width, opt.max_occ)
@@ -2551,9 +2551,9 @@ def seeder_copies():
             setattr(cls, name, kept(getattr(cls, name)))
 
     def chunked(seed_fn):
-        def wrapped(reads, **kw):
+        def wrapped(*args, **kw):
             now.update(bytes=0, ms=0.0, outs=[])
-            got = seed_fn(reads, **kw)
+            got = seed_fn(*args, **kw)
             full, ms = 0, 0.0
             for o in now["outs"]:
                 if o.is_cuda:

@@ -25,8 +25,9 @@ COPIES = {
     "io.fastq": {
         "iter_fastq_chunks": (
             "tracer= times the stream's reads and the parsing as spans "
-            "(utils.metrics.Tracer); the JAX package's CLI traces no input",
-            None),
+            "(utils.metrics.Tracer); the JAX package's CLI traces no input; "
+            "the chunks are ReadBatches (columns, a sequence of Read), "
+            "the JAX package's lists of Read", "io.fastq:ReadBatch"),
     },
     "io.sam": {},
     "native": {},

@@ -283,9 +283,10 @@ def test_seeder_rows_equal_single(seed_world, n):
     fm, po, reads = seed_world
     opt = MemOptions()
     single = smem_torch.make_device_seeder(po, fm, opt, CPU)
-    want = single(reads)
+    q = gate.read_matrix(reads)
+    want = single(*q)
     seed_fn = dist.make_sharded_device_seeder(_cpus(n), po, fm, opt)
-    _equal(seed_fn(reads), want)
+    _equal(seed_fn(*q), want)
     c = seed_fn.stats.counts
     assert c == single.stats.counts
     assert c["split_rounds"] >= 1 and c["ovf_reads"] >= 1 and len(want) > 200
@@ -332,11 +333,12 @@ def test_seeder_regimes(world, monkeypatch):
         return real(devices, po, fm_, opt_)
 
     monkeypatch.setattr(smem_sharded, "make_table_sharded_seeder", spy)
-    want = smem_torch.make_device_seeder(po, fm, opt, CPU)(reads)
+    want = smem_torch.make_device_seeder(po, fm, opt, CPU)(
+        *gate.read_matrix(reads))
     for p, forced in ((big, None), (po, True)):
         seed_fn = dist.make_sharded_device_seeder(_cpus(2), p, fm, opt,
                                                   table_sharded=forced)
-        _equal(seed_fn(reads), want)
+        _equal(seed_fn(*gate.read_matrix(reads)), want)
     assert routed == [(1 << 31) + 7, po.n_rows]
 
 
@@ -444,7 +446,11 @@ for args, out in calls:
 print("FUSED_IDX_OK", len(calls), out.shape)
 
 # the reads-sharded seeder: rows, both packages
-got = dist.make_sharded_device_seeder(cpus, po, fm, opt)(reads)
+qlen = np.array([len(r) for r in reads], np.int64)
+mat = np.full((len(reads), int(qlen.max())), 4, np.uint8)
+for b, r in enumerate(reads):
+    mat[b, :len(r)] = r
+got = dist.make_sharded_device_seeder(cpus, po, fm, opt)(mat, qlen)
 want = np.asarray(jdist.make_sharded_device_seeder(mesh, jpo, jfm, jopt)(
     reads)).astype(np.int64)
 assert got.shape == want.shape and np.array_equal(got, want)

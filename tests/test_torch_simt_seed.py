@@ -284,7 +284,7 @@ def test_kernel_seeder_rows_match_native(lib, world):
     opt = MemOptions()
     seed_fn = smem_torch.seeder(_progs(lib, world),
                                 smem_torch.exact_seeder(po, fm, opt), opt)
-    got = seed_fn(reads)
+    got = seed_fn(*gate.read_matrix(reads))
     mat, qlen = gate.read_matrix(reads)
     n, want = native.collect_seeds_native(
         po, fm.ssa, fm.sa_intv, mat, qlen, opt.min_seed_len,
@@ -326,14 +326,14 @@ def test_kernel_seeder_counts_records_only_under_a_tracer(lib, world):
     exact = smem_torch.exact_seeder(po, fm, opt)
     spy = _SpyPrograms(lib, d, fm.ssa, fm.sa_intv)
     seed_fn = smem_torch.seeder(spy, exact, opt)
-    want = seed_fn(reads)
+    want = seed_fn(*gate.read_matrix(reads))
     assert len(spy.given) >= 3 and not any(spy.given), spy.given
 
     def traced(progs):
         tr = Tracer(None)
         fn = smem_torch.seeder(progs, exact, opt)
         with span(tr, "seed.device", n_reads=len(reads)):
-            rows = fn(reads, tracer=tr)
+            rows = fn(*gate.read_matrix(reads), tracer=tr)
         return rows, tr.counters
 
     spy.given.clear()
@@ -385,8 +385,9 @@ def test_narrowed_copies_match_the_full_layout(lib, world):
                                                  smem_torch.M_CAP))
     opt = MemOptions()
     exact = smem_torch.exact_seeder(po, fm, opt)
-    np.testing.assert_array_equal(smem_torch.seeder(narrow, exact, opt)(reads),
-                                  smem_torch.seeder(emu, exact, opt)(reads))
+    q = gate.read_matrix(reads)
+    np.testing.assert_array_equal(smem_torch.seeder(narrow, exact, opt)(*q),
+                                  smem_torch.seeder(emu, exact, opt)(*q))
 
 
 @pytest.fixture(scope="module")

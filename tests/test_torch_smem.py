@@ -146,7 +146,7 @@ def test_seed_rows_match_jax_and_native(world, seed):
     opt = MemOptions()
     split_len = smem_torch.split_len_of(opt)
     seed_fn = smem_torch.make_device_seeder(po, fm, opt, "cpu")
-    got = seed_fn(reads)
+    got = seed_fn(*gate.read_matrix(reads))
     n, want = native.collect_seeds_native(
         po, fm.ssa, fm.sa_intv, mat, qlen, opt.min_seed_len, split_len,
         opt.split_width, opt.max_occ)

@@ -135,14 +135,15 @@ def test_seeder_rows_match_jax(world, jax_out, n):
     fm, po, reads, _ = world
     opt = MemOptions()
     seed_fn = smem_sharded.make_table_sharded_seeder([CPU] * n, po, fm, opt)
-    got = seed_fn(reads)
+    got = seed_fn(*gate.read_matrix(reads))
     want = jax_out["rows"]
     assert got.dtype == np.int64 and len(want) > 0
     np.testing.assert_array_equal(got, want)
     c = seed_fn.stats.counts
     assert c["chunks"] == 1 and c["split_rounds"] >= 1, c
     np.testing.assert_array_equal(
-        got, smem_torch.make_device_seeder(po, fm, opt, CPU)(reads))
+        got, smem_torch.make_device_seeder(po, fm, opt, CPU)(
+            *gate.read_matrix(reads)))
 
 
 def _refused(*a, **k):
@@ -166,7 +167,8 @@ def test_overflowed_reads_at_2_31_rows_seeded_exactly(world, jax_out, n,
     monkeypatch.setattr(native, "collect_seeds_native", _refused)
     seed_fn = smem_sharded.make_table_sharded_seeder([CPU] * n, po, fm,
                                                      MemOptions())
-    np.testing.assert_array_equal(seed_fn(reads), jax_out["rows"])
+    np.testing.assert_array_equal(seed_fn(*gate.read_matrix(reads)),
+                                  jax_out["rows"])
     c = seed_fn.stats.counts
     assert c["ovf_reads"] > 0 and c["ovf_jobs"] > 0, c
     assert c["ovf_reads"] < c["exact_reads"] < len(reads), c
